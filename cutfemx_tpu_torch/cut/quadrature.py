@@ -1,0 +1,283 @@
+"""Runtime (cut-cell) quadrature generation, linear marching path.
+
+The torch counterpart of ``cutfemx_tpu.cut.quadrature`` for a P1 level set:
+every cut cell emits a fixed maximum number of quadrature points
+(zero-weight padded), so the whole pipeline is static-shaped and runs as
+batched tensor ops on the level set's device.
+
+Uniform weight construction: a cut part is a k-simplex with vertex matrix S
+in parent *reference* coordinates (k = tdim for volume parts, tdim-1 for
+interface parts). With T = [S_1-S_0, ..., S_k-S_0] and the parent geometry
+Jacobian J(xi) the physical weight of rule point q is
+
+    w_q * sqrt(det( (J T)^T (J T) ))
+
+so runtime rules carry PHYSICAL weights, and the assembly kernels skip the
+detJ scaling for them.
+
+The curved (P2) cut, red refinement for higher-degree level sets, facet-
+hosted, compound and union rules wait for ROADMAP item 10.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..elements import lagrange_element
+from ..quadrature import quadrature_rule
+from .tables import canonical_edges, simplex_cut_tables
+
+__all__ = ["RuntimeQuadratureRules", "volume_rules", "interface_rules",
+           "full_cell_rules"]
+
+
+class RuntimeQuadratureRules:
+    """Runtime quadrature rules of cut cells, padded: points_padded
+    (n, Qmax, tdim) in parent reference coords and weights_padded
+    (n, Qmax), PHYSICAL weights with zero padding, as tensors on the level
+    set's device; parent_map holds the n parent cells."""
+
+    kind = "per_entity"
+
+    def __init__(self, tdim, parent_map, points_padded, weights_padded,
+                 mesh=None, normals_padded=None):
+        self.tdim = int(tdim)
+        self.parent_map = np.asarray(parent_map, dtype=np.int32)
+        self.points_padded = points_padded
+        self.weights_padded = weights_padded
+        self.mesh = mesh
+        self.parent_cells = self.parent_map   # cell-hosted rules only
+        self.normals_padded = normals_padded  # interface geometric normals
+
+
+# ---------------------------------------------------------------------------
+# vectorized marching-simplex machinery
+# ---------------------------------------------------------------------------
+
+
+def _march_parts(phis, verts, k, table):
+    """Extract cut parts of embedded k-simplices.
+
+    phis:  (C, k+1) level-set values at simplex vertices
+    verts: (C, k+1, tdim) simplex vertex coords (parent-reference space)
+    table: (2^(k+1), max_parts, m) node-id table (m = k+1 for volume parts,
+           k for interface parts)
+
+    Returns (X (C, max_parts, m, tdim), valid (C, max_parts)).
+    """
+    C = phis.shape[0]
+    edges = canonical_edges(k)
+    signs = (phis < 0.0).to(torch.int64)
+    case = torch.zeros(C, dtype=torch.int64, device=phis.device)
+    for i in range(k + 1):
+        case = case + (signs[:, i] << i)
+
+    # node coordinates: vertices then canonical-edge intersections
+    a_idx = [a for a, _ in edges]
+    b_idx = [b for _, b in edges]
+    fa = phis[:, a_idx]
+    fb = phis[:, b_idx]
+    denom = fa - fb
+    t = torch.where(torch.abs(denom) > 1e-300, fa / denom, 0.5)
+    t = torch.clamp(t, 0.0, 1.0)                # (C, nE)
+    va = verts[:, a_idx, :]
+    vb = verts[:, b_idx, :]
+    cross = va + t[..., None] * (vb - va)       # (C, nE, tdim)
+    nodes = torch.cat([verts, cross], dim=1)    # (C, nn, tdim)
+
+    tab = torch.as_tensor(np.asarray(table), dtype=torch.int64,
+                          device=phis.device)[case]   # (C, max_parts, m)
+    valid = tab[:, :, 0] >= 0
+    tab = torch.clamp(tab, min=0)
+    rows = torch.arange(C, device=phis.device)[:, None, None]
+    X = nodes[rows, tab]                        # (C, max_parts, m, tdim)
+    return X, valid
+
+
+def _physical_weights(mesh_cell_type, cell_coords, points, T, rule_w, valid):
+    """w_q * gram_det(J(xi_q) @ T) with padding zeroed.
+
+    cell_coords: (C, nv, gdim); points: (C, M, nq, tdim);
+    T: (C, M, tdim, k); rule_w: (nq,); valid: (C, M).
+    Returns weights (C, M, nq).
+    """
+    el = lagrange_element(mesh_cell_type, 1)
+    C, M, nq, tdim = points.shape
+    dphi = el.tabulate_grad(points.reshape(C, M * nq, tdim))  # (C,Mnq,nv,t)
+    J = torch.einsum("cvg,cqvt->cqgt", cell_coords, dphi)
+    J = J.reshape(C, M, nq, J.shape[-2], tdim)
+    G = torch.einsum("cmqgt,cmtk->cmqgk", J, T)
+    GTG = torch.einsum("cmqgk,cmqgl->cmqkl", G, G)
+    k = T.shape[-1]
+    if k == 1:
+        gram = torch.sqrt(torch.abs(GTG[..., 0, 0]))
+    else:
+        gram = torch.sqrt(torch.abs(torch.linalg.det(GTG)))
+    w = rule_w[None, None, :] * gram
+    return torch.where(valid[:, :, None], w, 0.0)
+
+
+def _map_rule(X, rule_pts):
+    """Map reference-simplex rule points onto part simplices.
+
+    X: (C, M, m, tdim) part vertices (m = k+1); rule_pts: (nq, k).
+    Returns (points (C, M, nq, tdim), T (C, M, tdim, k))."""
+    T = torch.movedim(X[:, :, 1:, :] - X[:, :, :1, :], 2, 3)  # (C,M,tdim,k)
+    rp = torch.as_tensor(rule_pts, dtype=X.dtype, device=X.device)
+    pts = X[:, :, None, 0, :] + torch.einsum("qk,cmtk->cmqt", rp, T)
+    return pts, T
+
+
+_SIMPLEX_NAME = {1: "interval", 2: "triangle", 3: "tetrahedron"}
+
+
+def _cell_phi_dofs(phi, cells):
+    V = phi.function_space
+    idx = torch.as_tensor(V.dofmap[cells], dtype=torch.int64,
+                          device=phi.x.device)
+    return phi.x[idx]
+
+
+def _marching_setup(mesh, phi, cut_cells):
+    """Inputs of the marching over the NS simplices that split each cut
+    cell: (vertex phi values (C*NS, d+1), sub-simplex vertices
+    (C*NS, d+1, tdim), cell coords (C*NS, nv, gdim))."""
+    cell = mesh.ref_cell
+    tdim = cell.tdim
+    dt, dev = phi.x.dtype, phi.x.device
+    C = len(cut_cells)
+    dofs = _cell_phi_dofs(phi, cut_cells)
+    sims = cell.vertices[cell.simplex_split]      # (NS, d+1, tdim)
+    NS = sims.shape[0]
+    tab = torch.as_tensor(phi.function_space.element.tabulate(
+        sims.reshape(-1, tdim)), dtype=dt, device=dev)   # (NS(d+1), nd)
+    phi_all = torch.einsum("pn,cn->cp", tab, dofs).reshape(C * NS, tdim + 1)
+    verts = torch.as_tensor(sims, dtype=dt, device=dev)[None].expand(
+        C, NS, tdim + 1, tdim).reshape(C * NS, tdim + 1, tdim)
+    coords = torch.as_tensor(mesh.cell_vertex_coords[cut_cells], dtype=dt,
+                             device=dev)
+    coords_rep = torch.repeat_interleave(coords, NS, dim=0)
+    return phi_all, verts, coords_rep
+
+
+def volume_rules(mesh, phi, cut_cells, order, side="<"):
+    """Padded volume rules for {phi < 0} (side '<') or {phi > 0} (side '>')
+    on the given cut cells. Points in parent reference coords; weights
+    physical."""
+    tdim = mesh.ref_cell.tdim
+    VOL, _ = simplex_cut_tables(tdim)
+    rule_pts, rule_w = quadrature_rule(_SIMPLEX_NAME[tdim], order)
+    cut_cells = np.asarray(cut_cells, dtype=np.int32)
+    C = len(cut_cells)
+    phi_all, verts, coords_rep = _marching_setup(mesh, phi, cut_cells)
+    if side == ">":
+        phi_all = -phi_all
+    X, valid = _march_parts(phi_all, verts, tdim, VOL)
+    pts, T = _map_rule(X, rule_pts)               # (C*NS, M, nq, t)
+    w = _physical_weights(mesh.cell_type, coords_rep, pts, T,
+                          torch.as_tensor(rule_w, dtype=pts.dtype,
+                                          device=pts.device), valid)
+    return RuntimeQuadratureRules(tdim, cut_cells, pts.reshape(C, -1, tdim),
+                                  w.reshape(C, -1), mesh=mesh)
+
+
+def interface_rules(mesh, phi, cut_cells, order):
+    """Padded interface ({phi = 0}) rules on cut cells, with geometric
+    normals oriented by grad(phi) (outward from the {phi<0} phase)."""
+    tdim = mesh.ref_cell.tdim
+    _, SURF = simplex_cut_tables(tdim)
+    rule_pts, rule_w = quadrature_rule(_SIMPLEX_NAME[tdim - 1], order) \
+        if tdim > 1 else (np.zeros((1, 0)), np.ones(1))
+    cut_cells = np.asarray(cut_cells, dtype=np.int32)
+    C = len(cut_cells)
+    sphis, sverts, coords_rep = _marching_setup(mesh, phi, cut_cells)
+    X, valid = _march_parts(sphis, sverts, tdim, SURF)
+    pts, T = _map_rule(X, rule_pts)               # T: (CNS, M, t, t-1)
+    w = _physical_weights(mesh.cell_type, coords_rep, pts, T,
+                          torch.as_tensor(rule_w, dtype=pts.dtype,
+                                          device=pts.device), valid)
+
+    # geometric normal: reference-space normal of the planar part,
+    # pushed forward covariantly (J^-T), oriented along grad(phi)
+    gphi_ref = _linear_gradient(sverts, sphis)        # (CNS, tdim)
+    nref = _part_normals(T)                           # (CNS, M, tdim)
+    orient = torch.sign(torch.einsum("cmt,ct->cm", nref, gphi_ref))
+    orient = torch.where(orient == 0, 1.0, orient)
+    nref = nref * orient[:, :, None]
+    nphys = _push_normal(mesh.cell_type, coords_rep, pts, nref)
+    return RuntimeQuadratureRules(
+        tdim, cut_cells, pts.reshape(C, -1, tdim), w.reshape(C, -1),
+        mesh=mesh, normals_padded=nphys.reshape(C, -1, nphys.shape[-1]))
+
+
+def _linear_gradient(verts, vals):
+    """Gradient of the linear interpolant on each simplex.
+
+    verts: (C, k+1, tdim); vals: (C, k+1) -> (C, tdim)."""
+    E = verts[:, 1:, :] - verts[:, :1, :]          # (C, k, t)
+    d = vals[:, 1:] - vals[:, :1]                  # (C, k)
+    if E.shape[1] == E.shape[2]:
+        return torch.linalg.solve(E, d[..., None])[..., 0]
+    ET = E.transpose(1, 2)
+    g = torch.linalg.solve(E @ ET, d[..., None])
+    return (ET @ g)[..., 0]
+
+
+def _part_normals(T):
+    """Unit normal (up to sign) of codim-1 parts from their reference
+    tangent matrix T: (C, M, tdim, tdim-1) -> (C, M, tdim)."""
+    tdim = T.shape[2]
+    if tdim == 2:
+        t = T[:, :, :, 0]
+        n = torch.stack([t[..., 1], -t[..., 0]], dim=-1)
+    elif tdim == 3:
+        n = torch.linalg.cross(T[:, :, :, 0], T[:, :, :, 1], dim=-1)
+    else:
+        n = torch.ones(T.shape[:2] + (1,), dtype=T.dtype, device=T.device)
+    norm = torch.linalg.norm(n, dim=-1, keepdim=True)
+    return n / torch.where(norm > 0, norm, 1.0)
+
+
+def _push_normal(cell_type, coords, pts, nref):
+    """Covariant pushforward n_phys ~ J^{-T} n_ref, normalized.
+
+    coords: (C, nv, g); pts: (C, M, nq, t); nref: (C, M, t)."""
+    el = lagrange_element(cell_type, 1)
+    C, M, nq, tdim = pts.shape
+    dphi = el.tabulate_grad(pts.reshape(C, M * nq, tdim))
+    J = torch.einsum("cvg,cqvt->cqgt", coords, dphi).reshape(
+        C, M, nq, -1, tdim)
+    if J.shape[-2] == tdim:
+        K = torch.linalg.inv(J)                   # (C, M, nq, t, g)
+    else:
+        K = torch.linalg.pinv(J)
+    n = torch.einsum("cmqtg,cmt->cmqg", K, nref)
+    norm = torch.linalg.norm(n, dim=-1, keepdim=True)
+    return n / torch.where(norm > 0, norm, 1.0)
+
+
+def full_cell_rules(mesh, cells, order, *, device, dtype=torch.float64):
+    """Runtime rules covering whole (uncut) cells — the oracle utility the
+    reference tests use to check runtime assembly against standard
+    assembly."""
+    cell = mesh.ref_cell
+    tdim = cell.tdim
+    rule_pts, rule_w = quadrature_rule(_SIMPLEX_NAME[tdim], order)
+    cells = np.asarray(cells, dtype=np.int32)
+    C = len(cells)
+    coords = torch.as_tensor(mesh.cell_vertex_coords[cells], dtype=dtype,
+                             device=device)
+    rw = torch.as_tensor(rule_w, dtype=dtype, device=device)
+    all_pts, all_w = [], []
+    for sub in cell.simplex_split:
+        verts = torch.as_tensor(cell.vertices[sub], dtype=dtype,
+                                device=device).expand(C, tdim + 1, tdim)
+        X = verts[:, None, :, :]
+        valid = torch.ones((C, 1), dtype=torch.bool, device=device)
+        pts, T = _map_rule(X, rule_pts)
+        w = _physical_weights(mesh.cell_type, coords, pts, T, rw, valid)
+        all_pts.append(pts.reshape(C, -1, tdim))
+        all_w.append(w.reshape(C, -1))
+    return RuntimeQuadratureRules(tdim, cells, torch.cat(all_pts, dim=1),
+                                  torch.cat(all_w, dim=1), mesh=mesh)
