@@ -1,21 +1,32 @@
 #!/usr/bin/env python3
 """Drive cutfemx_tpu_torch's main path once on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile] [--parent-source CU]
 
 Phases, each printing one line of numbers:
 
 1. device: the card's name, and ``nvidia-smi``'s name and power limit;
 2. build: compiles the hand-written kernels from ``cutfemx_tpu_torch/csrc``;
-3. kernel: each kernel against its plain PyTorch version on the card at
-   the slice's shapes (n = 48: N = 49, nch = 8, L = 27), f32 and f64, with
-   CUDA-event times of both;
+3. kernel: each kernel against its plain PyTorch version on the card, f32
+   and f64, at three shapes (nch = 8, L = 27): the slice's grid n = 48 with
+   its own mask (4,512 full cubes), the same grid at a 50% random mask, and
+   bench.py's n = 108 grid with its mask. Per shape: the error, two
+   launches bitwise equal, CUDA-event times with the L2 flushed between
+   calls (``ms``) and without (``ms_warm``), the plain version's and one
+   cuSPARSE ``torch.mv`` on the masked operator in CSR (``library_ms``, a
+   yardstick the port never calls), and the bound: the bytes these inputs
+   need over the card's published 3.35 TB/s;
 4. small: the slice at n = 8 on the card against the same code on the CPU
    (where the interior stencil is the plain version), in f64;
 5. slice: bench.py's moving-domain step at n = 48 (912,673 P2 dofs,
    r = 0.46, gamma = 40, f32 forms, Jacobi CG in f64 iterative refinement,
    rtol 1e-6): one warm-up and two timed passes, with the kernel launches
-   each pass made.
+   each pass made; the operator's cube mask must equal the kernel phase's.
+
+``--profile`` adds one pass of the slice under ``torch.profiler`` (device
+busy and idle share, K1's device time). ``--parent-source CU`` builds an
+earlier ``interior_stencil.cu`` with the same flags and times it in turns
+with K1 at each shape (``parent_ms``).
 
 Then one JSON line of the kernels, the nvidia-smi line, and, last, the JSON
 result line. Any failed check raises: the script exits nonzero and prints
@@ -28,6 +39,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -41,7 +53,14 @@ N_SLICE, N_SMALL = 48, 8
 RADIUS, GAMMA, DEGREE = 0.46, 40.0, 2
 RTOL, MAXITER = 1e-6, 500
 KERNEL_TOL = {"float32": 2e-6, "float64": 1e-12}   # times max|y|
-TIMING_REPS = 30
+# K1's shapes: the slice's grid with its own mask (full cubes by the corner
+# rule), the same grid at a 50% random mask, and bench.py's n = 108 grid
+KERNEL_SHAPES = (("n48_bench", 48, "bench"), ("n48_random50", 48, "random"),
+                 ("n108_bench", 108, "bench"))
+KERNEL_REPS, PLAIN_REPS = 40, 10
+FLUSH_BYTES = 256 * 2 ** 20         # rewritten between timed calls > L2
+SLEEP_CYCLES_PER_CALL = 4_000_000   # ~2 ms of queue ahead of each call
+HBM_BYTES_PER_S = 3.35e12           # H100 SXM published peak, 700 W
 
 
 def _phase(phase, **numbers):
@@ -58,63 +77,159 @@ def _import_port():
     return cutfemx_tpu_torch
 
 
-def _median_ms(fn, reps=TIMING_REPS, warmup=3):
+def _device_times(fn, reps, flush=None):
+    """Device time (ms) of each of ``reps`` calls of ``fn``, by CUDA events
+    around each call. A sleep kernel queued first keeps the card behind the
+    host, so the host's launch overhead never lands between two events.
+    With ``flush`` (a buffer of >= 128 MB) rewritten before each call, the
+    50 MB L2 holds none of the call's inputs."""
     import torch
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
+    fn()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * reps)
+    for e0, e1 in ev:
+        if flush is not None:
+            flush.zero_()
         e0.record()
         fn()
         e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return float(np.median(times))
+    torch.cuda.synchronize()
+    return [e0.elapsed_time(e1) for e0, e1 in ev]
 
 
-def kernel_phase(ct, dev):
-    """K1 against its plain version at the slice's shapes."""
+def corner_rule_mask(n, radius=RADIUS):
+    """Full cubes of the bench's sphere on the n^3 create_box lattice:
+    a cube is full when phi < 0 at all 8 corners (exact for a P1 level
+    set on create_box tets)."""
+    x = np.linspace(-1.0, 1.0, n + 1)
+    phi = np.sqrt(x[:, None, None] ** 2 + x[None, :, None] ** 2
+                  + x[None, None, :] ** 2) - radius
+    inside = phi < 0
+    full = np.ones((n, n, n), bool)
+    for dx in (0, 1):
+        for dy in (0, 1):
+            for dz in (0, 1):
+                full &= inside[dx:dx + n, dy:dy + n, dz:dz + n]
+    return full
+
+
+def bound_bytes(n, N, nch, table, mask, itemsize):
+    """Bytes K1 must move on these inputs: the whole output written once,
+    the mask and A read once, and the X values that full cubes touch read
+    once."""
+    import torch
+    m = mask.bool()
+    touched = torch.zeros((nch, N, N, N), dtype=torch.bool,
+                          device=mask.device)
+    for ch, (dx, dy, dz) in table:
+        touched[ch, dx:dx + n, dy:dy + n, dz:dz + n] |= m
+    L = len(table)
+    return (nch * N ** 3 + int(touched.sum()) + L * L) * itemsize + n ** 3
+
+
+def csr_operator(n, N, nch, table, A, mask):
+    """The masked interior operator as a CSR matrix on the card (summed
+    duplicates), for the cuSPARSE yardstick; the port never builds it."""
+    import torch
+    q = mask.bool().nonzero()                                  # (nq, 3)
+    idx = torch.stack([ch * N ** 3 + ((q[:, 0] + dx) * N + q[:, 1] + dy) * N
+                       + q[:, 2] + dz for ch, (dx, dy, dz) in table], 1)
+    nq, L = idx.shape
+    rows = idx[:, :, None].expand(nq, L, L).reshape(-1)
+    cols = idx[:, None, :].expand(nq, L, L).reshape(-1)
+    vals = A[None].expand(nq, L, L).reshape(-1)
+    M = nch * N ** 3
+    with warnings.catch_warnings():   # "CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals,
+                                      (M, M), check_invariants=False)
+        return coo.coalesce().to_sparse_csr()
+
+
+def kernel_phase(ct, dev, parent_src=None):
+    """K1 against its plain version, the cuSPARSE yardstick and its bound
+    at each shape of KERNEL_SHAPES, in f32 and f64; with ``parent_src``,
+    also the kernel built from that source, timed in turns with K1."""
     import torch
     from cutfemx_tpu_torch import interior_stencil as ist
     from cutfemx_tpu_torch.stencil import _local_dof_table
-    n, N, nch = N_SLICE, N_SLICE + 1, 8
     table = _local_dof_table(DEGREE)
-    L = len(table)
+    L, nch = len(table), 8
+    parent = None if parent_src is None else ist._load(parent_src)
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
     rng = np.random.default_rng(0)
     A = rng.standard_normal((L, L))
     if np.allclose(A, A.T):
         raise RuntimeError("the kernel check needs a non-symmetric A")
-    mask = torch.as_tensor((rng.random((n, n, n)) < 0.5).astype(np.uint8),
-                           device=dev)
-    X = rng.standard_normal(nch * N ** 3)
-    out = {}
-    for dtype in (torch.float32, torch.float64):
-        At = torch.as_tensor(A, dtype=dtype, device=dev)
-        Xt = torch.as_tensor(X, dtype=dtype, device=dev)
-        args = (n, N, nch, table, At, mask, Xt)
-        y = ist.interior_stencil_apply(*args)
-        y2 = ist.interior_stencil_apply(*args)
-        y_ref = ist.interior_stencil_apply_reference(*args)
-        torch.cuda.synchronize()
-        err = float((y - y_ref).abs().max())
-        scale = float(y_ref.abs().max())
-        name = str(dtype).replace("torch.", "")
-        if not err <= KERNEL_TOL[name] * scale:
-            raise RuntimeError(f"interior_stencil {name}: max|err| {err} > "
-                               f"{KERNEL_TOL[name]} * max|y| {scale}")
-        if not torch.equal(y, y2):
-            raise RuntimeError(f"interior_stencil {name}: two launches "
-                               "on one input differ")
-        ms = _median_ms(lambda: ist.interior_stencil_apply(*args))
-        plain_ms = _median_ms(
-            lambda: ist.interior_stencil_apply_reference(*args))
-        out[name] = dict(max_abs_err=err, max_abs_y=scale, ms=ms,
-                         plain_ms=plain_ms)
-        _phase("kernel", kernel="interior_stencil", dtype=name, n=n,
-               values=nch * N ** 3, max_abs_err=err, max_abs_y=scale,
-               tol=KERNEL_TOL[name], ms=ms, plain_ms=plain_ms)
+    out = []
+    for shape, n, mask_kind in KERNEL_SHAPES:
+        N = n + 1
+        if mask_kind == "bench":
+            mask_np = corner_rule_mask(n)
+        else:
+            mask_np = rng.random((n, n, n)) < 0.5
+        mask = torch.as_tensor(mask_np.astype(np.uint8), device=dev)
+        X = rng.standard_normal(nch * N ** 3)
+        for dtype in (torch.float32, torch.float64):
+            name = str(dtype).replace("torch.", "")
+            At = torch.as_tensor(A, dtype=dtype, device=dev)
+            Xt = torch.as_tensor(X, dtype=dtype, device=dev)
+            args = (n, N, nch, table, At, mask, Xt)
+            y = ist.interior_stencil_apply(*args)
+            y2 = ist.interior_stencil_apply(*args)
+            y_ref = ist.interior_stencil_apply_reference(*args)
+            torch.cuda.synchronize()
+            err = float((y - y_ref).abs().max())
+            scale = float(y_ref.abs().max())
+            tol = KERNEL_TOL[name] * scale
+            if not err <= tol:
+                raise RuntimeError(f"interior_stencil {shape} {name}: "
+                                   f"max|err| {err} > {tol}")
+            if not torch.equal(y, y2):
+                raise RuntimeError(f"interior_stencil {shape} {name}: two "
+                                   "launches on one input differ")
+            csr = csr_operator(n, N, nch, table, At, mask)
+            lib_err = float((torch.mv(csr, Xt) - y_ref).abs().max())
+            if not lib_err <= tol:
+                raise RuntimeError(f"cuSPARSE yardstick {shape} {name}: "
+                                   f"max|err| {lib_err} > {tol}")
+            k1 = lambda: ist.interior_stencil_apply(*args)  # noqa: E731
+            row = dict(shape=shape, n=n, dtype=name, values=nch * N ** 3,
+                       full_cubes=int(mask_np.sum()), max_abs_err=err,
+                       max_abs_y=scale, tol=KERNEL_TOL[name],
+                       bitwise_repeat=True)
+            if parent is not None:
+                p_args = (parent, *args)
+                p_err = float((ist._run(*p_args) - y_ref).abs().max())
+                if not p_err <= tol:
+                    raise RuntimeError(f"parent kernel {shape} {name}: "
+                                       f"max|err| {p_err} > {tol}")
+                half = KERNEL_REPS // 2
+                p1 = _device_times(lambda: ist._run(*p_args), half, flush)
+                t = _device_times(k1, KERNEL_REPS, flush)
+                p2 = _device_times(lambda: ist._run(*p_args), half, flush)
+                row.update(parent_ms=float(np.median(p1 + p2)),
+                           parent_max_abs_err=p_err)
+            else:
+                t = _device_times(k1, KERNEL_REPS, flush)
+            ms = float(np.median(t))
+            ms_warm = float(np.median(_device_times(k1, KERNEL_REPS)))
+            plain_ms = float(np.median(_device_times(
+                lambda: ist.interior_stencil_apply_reference(*args),
+                PLAIN_REPS, flush)))
+            library_ms = float(np.median(_device_times(
+                lambda: torch.mv(csr, Xt), KERNEL_REPS, flush)))
+            nbytes = bound_bytes(n, N, nch, table, mask, Xt.element_size())
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            row.update(ms=ms, ms_warm=ms_warm, plain_ms=plain_ms,
+                       library_ms=library_ms, library_max_abs_err=lib_err,
+                       bound_bytes=nbytes, bound_ms=bound_ms,
+                       bound_us=bound_ms * 1e3, share=bound_ms / ms)
+            del csr
+            _phase("kernel", kernel="interior_stencil", **row)
+            out.append(row)
     return out
 
 
@@ -215,8 +330,40 @@ def small_phase(ct, dev):
            x_rel_err=x_err, its_cuda=g["its"], its_cpu=c["its"])
 
 
-def slice_phase(ct, dev):
-    """bench.py's step at n = 48 on the card: warm-up + two timed passes."""
+def profile_pass(ct, mesh, phi, V):
+    """One more pass of the slice under torch.profiler: the device's busy
+    time and idle share, and K1's device time, launches and share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run = pipeline(ct, mesh, phi, V, torch.float32)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only: an operator's entry repeats its kernels' time
+    items = [(e.key, e.self_device_time_total / 1e3, e.count)
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and e.self_device_time_total > 0]
+    busy_ms = sum(ms for _, ms, _ in items)
+    if not busy_ms > 0:
+        raise RuntimeError("the profiler saw no device time")
+    k1 = [(ms, c) for key, ms, c in items if "interior_stencil" in key]
+    k1_ms, k1_count = (sum(m for m, _ in k1), sum(c for _, c in k1))
+    if not k1_count:
+        raise RuntimeError("the profiled pass launched no K1 kernel")
+    top = sorted(items, key=lambda it: -it[1])[:8]
+    _phase("profile", n=N_SLICE, iterations=run["its"], wall_ms=wall_ms,
+           device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / wall_ms,
+           k1_device_ms=k1_ms, k1_launches=k1_count,
+           k1_ms_per_launch=k1_ms / k1_count, k1_share_of_busy=k1_ms / busy_ms,
+           top=[dict(name=key[:80], ms=ms, count=c) for key, ms, c in top])
+
+
+def slice_phase(ct, dev, profile=False):
+    """bench.py's step at n = 48 on the card: warm-up + two timed passes
+    (and, with ``profile``, one profiled pass after them)."""
     import torch
     from cutfemx_tpu_torch import interior_stencil as ist
     t0 = time.perf_counter()
@@ -231,6 +378,10 @@ def slice_phase(ct, dev):
         run["launches"] = ist.launches - before
         passes.append((p, run))
     main_path_launches = ist.launches
+    op_mask = passes[-1][1]["op"].cube_mask
+    if not np.array_equal(op_mask, corner_rule_mask(N_SLICE)):
+        raise RuntimeError("the slice's cube mask differs from the corner "
+                           "rule K1's phase times")
     for p, run in passes:
         x, op = run["x"], run["op"]
         rel = true_rel_residual(op, run["b"], x)
@@ -256,11 +407,21 @@ def slice_phase(ct, dev):
     if abs(its[0] - JAX_CPU_ITERATIONS_N48) > band:
         raise RuntimeError(f"{its[0]} iterations, JAX-CPU reference "
                            f"{JAX_CPU_ITERATIONS_N48} (+-{band:.1f})")
+    if profile:
+        profile_pass(ct, mesh, phi, V)
     return main_path_launches
 
 
 def main():
+    import argparse
     import torch
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent-source", metavar="CU",
+                    help="also time the kernel built from this source (an "
+                         "earlier interior_stencil.cu), in turns with K1")
+    ap.add_argument("--profile", action="store_true",
+                    help="profile one more pass of the slice")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is visible")
     ct = _import_port()
@@ -282,7 +443,7 @@ def main():
            seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
-    k = kernel_phase(ct, dev)
+    k = kernel_phase(ct, dev, args.parent_source)
     _phase("kernel_done", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
@@ -290,19 +451,25 @@ def main():
     _phase("small_done", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
-    launches = slice_phase(ct, dev)
+    launches = slice_phase(ct, dev, args.profile)
     _phase("slice_done", seconds=time.perf_counter() - t0,
            total_seconds=time.perf_counter() - t_all)
 
-    f32, f64 = k["float32"], k["float64"]
+    # the main path's shape: the slice's grid and mask in f32, the CG's type
+    main_row = next(r for r in k if r["shape"] == "n48_bench"
+                    and r["dtype"] == "float32")
     print(json.dumps({"kernels": [{
         "name": "interior_stencil", "route": "cuda",
         "source": "cutfemx_tpu_torch/csrc/interior_stencil.cu",
         "replaces": "cutfemx_tpu/pallas_stencil.py:71",
-        "launches": launches, "max_abs_err": f32["max_abs_err"],
-        "ms": f32["ms"], "plain_ms": f32["plain_ms"],
-        "max_abs_err_f64": f64["max_abs_err"], "ms_f64": f64["ms"],
-        "plain_ms_f64": f64["plain_ms"]}]}))
+        "launches": launches,
+        **{key: main_row[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")},
+        "bound_by": "bytes",
+        "shapes": [{key: r[key] for key in (
+            "shape", "dtype", "max_abs_err", "ms", "ms_warm", "plain_ms",
+            "library_ms", "bound_ms", "bound_us", "share", "parent_ms")
+            if key in r} for r in k]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -8,11 +8,13 @@ standard cubes). On a CUDA tensor it launches the kernel of
 ``interior_stencil_apply_reference``, the plain torch version. Any other
 device raises, and there is no fallback from one to the other.
 
-On the H100 the apply is bound by bytes, not flops (2 L^2 flops per cube
-against one read and one write of the grid); see the kernel source for the
-design. The kernel is compiled with nvcc for sm_90a at first use into
-``build/cutfemx_tpu_torch/`` beside the package, keyed by a hash of its
-source, and bound through ctypes.
+On the H100 the apply is bound by bytes, not flops (2 L^2 flops per full
+cube against one write of the grid, one read of the mask and one read of
+the values full cubes touch). The kernel works on output tiles staged in
+shared memory and skips tiles whose cube window holds no full cube; see its
+source for the design. It is compiled with nvcc for sm_90a at first use
+into ``build/cutfemx_tpu_torch/`` beside the package, keyed by a hash of
+its source, and bound through ctypes.
 
 Convention: per cube y = A x, rows of ``A_local`` being the test slots (the
 element path's ``eij,ej->ei``).
@@ -44,6 +46,7 @@ _BUILD_DIR = os.path.join(
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC")
 _MAX_SLOTS = 27
+_MAX_CH = 8
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -66,41 +69,44 @@ def _nvcc():
     return path
 
 
+def _load(src):
+    """Compile ``src`` (once per source hash) and load its library."""
+    with open(src, "rb") as fh:
+        code = fh.read()
+    key = hashlib.sha256(code + " ".join(_NVCC_FLAGS).encode()) \
+        .hexdigest()[:16]
+    stem = os.path.splitext(os.path.basename(src))[0]
+    so = os.path.join(_BUILD_DIR, f"lib{stem}_{key}.so")
+    if not os.path.exists(so):
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+        os.close(fd)
+        try:
+            subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp, src],
+                           check=True, capture_output=True, text=True)
+            os.replace(tmp, so)  # atomic: concurrent builds agree
+        except subprocess.CalledProcessError as e:
+            raise RuntimeError(f"nvcc failed on {src}:\n{e.stderr}") from None
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    lib = ctypes.CDLL(so)
+    for name in ("interior_stencil_f32", "interior_stencil_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, _SlotTable, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def build():
     """Compile (once per source hash) and load the kernel library."""
     global _lib
     with _lib_lock:
-        if _lib is not None:
-            return _lib
-        with open(_SRC, "rb") as fh:
-            src = fh.read()
-        key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()) \
-            .hexdigest()[:16]
-        so = os.path.join(_BUILD_DIR, f"libinterior_stencil_{key}.so")
-        if not os.path.exists(so):
-            os.makedirs(_BUILD_DIR, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-            os.close(fd)
-            try:
-                subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp, _SRC],
-                               check=True, capture_output=True, text=True)
-                os.replace(tmp, so)  # atomic: concurrent builders agree
-            except subprocess.CalledProcessError as e:
-                raise RuntimeError(
-                    f"nvcc failed on {_SRC}:\n{e.stderr}") from None
-            finally:
-                if os.path.exists(tmp):
-                    os.remove(tmp)
-        lib = ctypes.CDLL(so)
-        for name in ("interior_stencil_f32", "interior_stencil_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int, _SlotTable,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        _lib = lib
-        return lib
+        if _lib is None:
+            _lib = _load(_SRC)
+        return _lib
 
 
 def _check(n, N, nch, table, A_local, cube_mask, Xin):
@@ -147,7 +153,16 @@ def interior_stencil_apply(n, N, nch, table, A_local, cube_mask, Xin):
         if not t.is_contiguous():
             raise ValueError("interior_stencil_apply needs contiguous "
                              "operands")
-    lib = build()
+    if nch > _MAX_CH:
+        raise ValueError(f"the kernel takes at most {_MAX_CH} channels, "
+                         f"got {nch}")
+    Y = _run(build(), n, N, nch, table, A_local, cube_mask, Xin)
+    launches += 1
+    return Y
+
+
+def _run(lib, n, N, nch, table, A_local, cube_mask, Xin):
+    """Launch ``lib``'s kernel on checked CUDA operands; returns Y."""
     tab = _SlotTable()
     tab.n_slots = len(table)
     for i, (ch, (dx, dy, dz)) in enumerate(table):
@@ -162,7 +177,6 @@ def interior_stencil_apply(n, N, nch, table, A_local, cube_mask, Xin):
     if err:
         raise RuntimeError(f"interior_stencil kernel launch failed: CUDA "
                            f"error {err}")
-    launches += 1
     return Y
 
 

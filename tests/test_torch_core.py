@@ -224,6 +224,30 @@ def test_reference_grid_apply_uses_A_transpose():
     assert rel_err(Y.reshape(-1), y_t) < 1e-14
 
 
+@pytest.mark.parametrize("n,deg,dtype,tol", [
+    (6, 2, np.float64, 1e-14), (6, 2, np.float32, 2e-6),
+    (5, 1, np.float64, 1e-14)])
+def test_interior_stencil_matches_pallas_kernel(n, deg, dtype, tol):
+    """The port's interior stencil against the JAX package's Pallas kernel
+    itself (interpret mode on the CPU, as tests/test_pallas_stencil.py runs
+    it) on the same seeded inputs: a non-symmetric A and a random mask.
+    Tolerances times max|y|: 2e-6 in f32 (test_pallas_stencil.py's), 1e-14
+    in f64 (both sum 27-term rows, in other orders)."""
+    from cutfemx_tpu.pallas_stencil import interior_stencil_apply as pallas
+    from cutfemx_tpu.pallas_stencil import pad_mask_for_stencil
+    table, nch, N, A, mask, X = _stencil_inputs(n, deg, dtype, seed=3)
+    assert not np.allclose(A, A.T)
+    y_pl = pallas(n, N, nch, table, A, pad_mask_for_stencil(mask, n, T=8),
+                  jnp.asarray(X), T=8, interpret=True)
+    y = interior_stencil_apply(n, N, nch, table, torch.as_tensor(A),
+                               torch.as_tensor(mask.astype(np.uint8)),
+                               torch.as_tensor(X))
+    y_pl = host(y_pl)
+    assert y_pl.dtype == dtype
+    assert np.abs(y_pl).max() > 0
+    assert rel_err(y_pl, y) < tol
+
+
 def test_wrapper_routes_cpu_to_plain_version_and_checks_inputs():
     n = 3
     table, nch, N, A, mask, X = _stencil_inputs(n, 2, np.float32)

@@ -55,6 +55,79 @@ def test_kernel_matches_plain_version(cuda_device, deg, dtype, tol):
     assert float((y - y_ref).abs().max()) <= tol * float(y_ref.abs().max())
 
 
+def tile_edge_mask(n, kind):
+    """Cube masks for the tile-edge cases: none full, all full, or the
+    cubes inside a sphere of radius 0.8 (all 8 corners inside) on the
+    [-1, 1]^3 lattice."""
+    if kind == "zero":
+        return np.zeros((n, n, n), bool)
+    if kind == "full":
+        return np.ones((n, n, n), bool)
+    x = np.linspace(-1.0, 1.0, n + 1)
+    inside = (x[:, None, None] ** 2 + x[None, :, None] ** 2
+              + x[None, None, :] ** 2) < 0.8 ** 2
+    full = np.ones((n, n, n), bool)
+    for dx in (0, 1):
+        for dy in (0, 1):
+            for dz in (0, 1):
+                full &= inside[dx:dx + n, dy:dy + n, dz:dz + n]
+    return full
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5, 12, 13, 33])
+@pytest.mark.parametrize("deg,kind", [(2, "zero"), (2, "full"),
+                                      (2, "sphere"), (1, "sphere")])
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 2e-6),
+                                       (np.float64, 1e-12)])
+def test_kernel_tile_edges(cuda_device, n, deg, kind, dtype, tol):
+    """Grids that no tile size divides, with empty, full and sphere masks:
+    the kernel matches its plain version (tolerances as above), an empty
+    mask gives exactly 0, two launches agree bitwise, and each call counts
+    one launch."""
+    from cutfemx_tpu_torch import interior_stencil as ist
+    table, nch, N, A, _, X = stencil_inputs(n, deg, dtype, seed=n)
+    mask = tile_edge_mask(n, kind)
+    args = [torch.as_tensor(a).to(cuda_device)
+            for a in (A, mask.astype(np.uint8), X)]
+    before = ist.launches
+    y = interior_stencil_apply(n, N, nch, table, *args)
+    y2 = interior_stencil_apply(n, N, nch, table, *args)
+    torch.cuda.synchronize()
+    assert ist.launches == before + 2
+    assert torch.equal(y, y2)
+    y_ref = interior_stencil_apply_reference(n, N, nch, table, *args)
+    if kind == "zero":
+        assert not y.any()
+    else:
+        assert y_ref.abs().max() > 0
+        assert float((y - y_ref).abs().max()) <= \
+            tol * float(y_ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5, 13])
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 2e-6),
+                                       (np.float64, 1e-12)])
+def test_kernel_runtime_table(cuda_device, n, dtype, tol):
+    """A slot table other than the operator's P2 and P1 tables (the kernel
+    compiles those two in) takes the path that reads the slots at run time:
+    the P2 table without its cell and face slots, on 4 channels."""
+    table = [(ch, off) for ch, off in _local_dof_table(2) if ch < 4]
+    L, nch, N = len(table), 4, n + 1
+    rng = np.random.default_rng(n)
+    A = rng.standard_normal((L, L)).astype(dtype)
+    mask = (rng.random((n, n, n)) < 0.6).astype(np.uint8)
+    X = rng.standard_normal(nch * N ** 3).astype(dtype)
+    args = [torch.as_tensor(a).to(cuda_device) for a in (A, mask, X)]
+    y = interior_stencil_apply(n, N, nch, table, *args)
+    y2 = interior_stencil_apply(n, N, nch, table, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2)
+    y_ref = interior_stencil_apply_reference(n, N, nch, table, *args)
+    assert float((y - y_ref).abs().max()) <= tol * float(y_ref.abs().max())
+
+
 @pytest.mark.cuda
 def test_grid_apply_is_deterministic_on_the_card(cuda_device):
     """The element path sums with a sorted segment sum, not atomics: two
