@@ -2,6 +2,7 @@
 """Drive cutfemx_tpu_torch's main path once on one CUDA card.
 
     python3 chip_smoke.py [--profile] [--parent-source CU]
+                          [--compare-preconds] [--n72] [--n90] [--n108]
 
 Phases, each printing one line of numbers:
 
@@ -21,12 +22,31 @@ Phases, each printing one line of numbers:
 5. slice: bench.py's moving-domain step at n = 48 (912,673 P2 dofs,
    r = 0.46, gamma = 40, f32 forms, Jacobi CG in f64 iterative refinement,
    rtol 1e-6): one warm-up and two timed passes, with the kernel launches
-   each pass made; the operator's cube mask must equal the kernel phase's.
+   each pass made; the operator's cube mask must equal the kernel phase's;
+6. stack_small: the n = 8 step with ``precond="pallas"`` (K1 + folded band
+   + cube-ASM + coarse lattice) on the card against the same step on CPU
+   tensors;
+7. stack: the n = 48 step with ``precond="pallas"``, as bench.py runs it on
+   a static level set: one warm-up and two timed passes, which must adopt
+   the cached fold, ASM and coarse builds, then one pass with the build
+   cache cleared (the cold build times). Gates: true relative residual
+   <= 1e-6, equal iterations in the timed passes, a count within +-5% (at
+   least +-3) of the JAX-CPU ``asm-fold2`` count, K1 launched once per
+   operator apply. Then each torch stage of one iteration (fold apply, ASM
+   apply, coarse apply, CG vector updates) and K1 timed alone on the
+   pass's tensors, with its calls per pass and the bytes it must move.
 
-``--profile`` adds one pass of the slice under ``torch.profiler`` (device
-busy and idle share, K1's device time). ``--parent-source CU`` builds an
-earlier ``interior_stencil.cu`` with the same flags and times it in turns
-with K1 at each shape (``parent_ms``).
+``--profile`` adds one pass of the slice and one of the stack under
+``torch.profiler`` (device busy and idle share, K1's device time, the top
+device kernels). ``--parent-source CU`` builds an earlier
+``interior_stencil.cu`` with the same flags and times it in turns with K1
+at each shape (``parent_ms``). ``--compare-preconds`` runs every
+preconditioner of ``solve_cg`` on the n = 48 step, cold and adopting (the
+numbers behind its 'auto' rule; 'asm-fold2' is left out, it is the path of
+'pallas'). ``--n72``, ``--n90`` and ``--n108`` run the stack, 'asm' and 'jacobi' at
+n = 72 (3,048,625 dofs), n = 90 (5,929,741 dofs) and n = 108 (10,218,313
+dofs), cold and adopting.
+None is in the default run's time.
 
 Then one JSON line of the kernels, the nvidia-smi line, and, last, the JSON
 result line. Any failed check raises: the script exits nonzero and prints
@@ -47,9 +67,15 @@ import numpy as np
 # slice with the same problem and options; PERF.md, "JAX-CPU reference of
 # the n = 48 slice", gives the command and the run.
 JAX_CPU_ITERATIONS_N48 = 263
+# the same for precond="asm-fold2": the operator and preconditioner of
+# "pallas" with the interior apply as an einsum (PERF.md, same section)
+JAX_CPU_ITERATIONS_N48_FOLD2 = 87
 ITERATION_BAND = 0.05          # the port must land within +-5% of it
+ITERATION_BAND_MIN = 3         # ... and no band is narrower than +-3
+STAGES = ("fold", "asm", "coarse")
 
 N_SLICE, N_SMALL = 48, 8
+LARGE_SIZES = (72, 90, 108)         # --n72, --n90, --n108
 RADIUS, GAMMA, DEGREE = 0.46, 40.0, 2
 RTOL, MAXITER = 1e-6, 500
 KERNEL_TOL = {"float32": 2e-6, "float64": 1e-12}   # times max|y|
@@ -246,7 +272,7 @@ def setup(ct, n, device, phi_dtype):
     return mesh, phi, V
 
 
-def pipeline(ct, mesh, phi, V, form_dtype, rtol=RTOL):
+def pipeline(ct, mesh, phi, V, form_dtype, rtol=RTOL, precond="jacobi"):
     """One moving-domain step, as bench.py's pipeline(): classify ->
     quadrature -> forms -> assemble -> operator -> solve."""
     import torch
@@ -289,7 +315,7 @@ def pipeline(ct, mesh, phi, V, form_dtype, rtol=RTOL):
     sync()
     t_mid = time.perf_counter()
     xs, its, _ = op.solve_cg(b, rtol=rtol, maxiter=MAXITER,
-                             precond="jacobi")
+                             precond=precond)
     sync()
     t1 = time.perf_counter()
     return dict(x=xs, its=int(its), b=b, op=op,
@@ -330,16 +356,17 @@ def small_phase(ct, dev):
            x_rel_err=x_err, its_cuda=g["its"], its_cpu=c["its"])
 
 
-def profile_pass(ct, mesh, phi, V):
-    """One more pass of the slice under torch.profiler: the device's busy
-    time and idle share, and K1's device time, launches and share."""
+def profile_pass(ct, mesh, phi, V, precond="jacobi"):
+    """One more pass of the step under torch.profiler: the device's busy
+    time and idle share, K1's device time, launches and share, and the top
+    device kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        run = pipeline(ct, mesh, phi, V, torch.float32)
+        run = pipeline(ct, mesh, phi, V, torch.float32, precond=precond)
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only: an operator's entry repeats its kernels' time
     items = [(e.key, e.self_device_time_total / 1e3, e.count)
@@ -353,23 +380,22 @@ def profile_pass(ct, mesh, phi, V):
     k1_ms, k1_count = (sum(m for m, _ in k1), sum(c for _, c in k1))
     if not k1_count:
         raise RuntimeError("the profiled pass launched no K1 kernel")
-    top = sorted(items, key=lambda it: -it[1])[:8]
-    _phase("profile", n=N_SLICE, iterations=run["its"], wall_ms=wall_ms,
+    top = sorted(items, key=lambda it: -it[1])[:10]
+    _phase("profile", precond=precond, n=N_SLICE, iterations=run["its"],
+           wall_ms=wall_ms, solve_ms=run["solve_s"] * 1e3,
            device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / wall_ms,
+           device_kernel_launches=sum(c for _, _, c in items),
            k1_device_ms=k1_ms, k1_launches=k1_count,
            k1_ms_per_launch=k1_ms / k1_count, k1_share_of_busy=k1_ms / busy_ms,
            top=[dict(name=key[:80], ms=ms, count=c) for key, ms, c in top])
 
 
-def slice_phase(ct, dev, profile=False):
-    """bench.py's step at n = 48 on the card: warm-up + two timed passes
-    (and, with ``profile``, one profiled pass after them)."""
+def slice_phase(ct, dev, mesh, phi, V, host_setup_s, profile=False):
+    """bench.py's step at n = 48 on the card with the Jacobi solve: warm-up
+    + two timed passes (and, with ``profile``, one profiled pass after
+    them). Returns the K1 launches of the three passes."""
     import torch
     from cutfemx_tpu_torch import interior_stencil as ist
-    t0 = time.perf_counter()
-    # bench.py runs with JAX's default f32: f32 level set and quadrature
-    mesh, phi, V = setup(ct, N_SLICE, dev, torch.float32)
-    host_setup_s = time.perf_counter() - t0
     passes = []
     ist.launches = 0
     for p in ("warmup", "timed1", "timed2"):
@@ -412,6 +438,289 @@ def slice_phase(ct, dev, profile=False):
     return main_path_launches
 
 
+def stack_small_phase(ct, dev):
+    """The n = 8 step with the production stack on the card against the
+    same step on CPU tensors (K1's plain version), in f64."""
+    import torch
+    runs = {}
+    for d in ("cpu", dev):
+        mesh, phi, V = setup(ct, N_SMALL, d, torch.float64)
+        runs[str(d)] = pipeline(ct, mesh, phi, V, torch.float64, rtol=1e-9,
+                                precond="pallas")
+    c, g = runs["cpu"], runs[str(dev)]
+    x_c = torch.where(c["op"].active, c["x"], 0.0)
+    x_g = torch.where(g["op"].active.cpu(), g["x"].cpu(), 0.0)
+    x_err = float((x_g - x_c).abs().max() / x_c.abs().max())
+    if not (x_err < 1e-5 and abs(g["its"] - c["its"]) <= 2
+            and torch.isfinite(g["x"]).all()):
+        raise RuntimeError(f"stack, n={N_SMALL}: card and CPU disagree: x "
+                           f"{x_err}, its {g['its']} vs {c['its']}")
+    _phase("stack_small", n=N_SMALL, dofs=c["op"].dim, x_rel_err=x_err,
+           its_cuda=g["its"], its_cpu=c["its"])
+
+
+class count_applies:
+    """Counts the operator applies made inside the block: every apply goes
+    through exactly one of the gather element path (_grid_apply_body) and
+    the folded one (_band_rest_apply)."""
+
+    NAMES = ("_grid_apply_body", "_band_rest_apply")
+
+    def __enter__(self):
+        from cutfemx_tpu_torch import stencil as st
+        self.n = 0
+        self.saved = {name: getattr(st, name) for name in self.NAMES}
+        for name, fn in self.saved.items():
+            setattr(st, name, self._counting(fn))
+        return self
+
+    def _counting(self, fn):
+        def counted(*args):
+            self.n += 1
+            return fn(*args)
+        return counted
+
+    def __exit__(self, *exc):
+        from cutfemx_tpu_torch import stencil as st
+        for name, fn in self.saved.items():
+            setattr(st, name, fn)
+
+
+def stack_pass(ct, dev, mesh, phi, V, name, n, precond="pallas"):
+    """One pass of the step with ``precond`` (the production stack unless
+    told otherwise): its numbers, checked for a finite solution at a true
+    relative residual <= RTOL and for one K1 launch per operator apply."""
+    import torch
+    from cutfemx_tpu_torch import interior_stencil as ist
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = ist.launches
+    with count_applies() as applies:
+        run = pipeline(ct, mesh, phi, V, torch.float32, precond=precond)
+    launches = ist.launches - before
+    x, op = run["x"], run["op"]
+    rel = true_rel_residual(op, run["b"], x)
+    if not (torch.isfinite(x).all() and x.shape == (V.dim,)):
+        raise RuntimeError(f"{precond} {name}: non-finite or misshapen "
+                           "solution")
+    if not rel <= RTOL:
+        raise RuntimeError(f"{precond} {name}: true relative residual "
+                           f"{rel} > {RTOL}")
+    # every f32 and f64 operator apply launches K1 once, whatever the
+    # preconditioner: one per CG iteration, one per chunk start, one per
+    # f64 measurement (the reported count holds all but the chunk starts)
+    if not launches == applies.n > run["its"]:
+        raise RuntimeError(f"{precond} {name}: {launches} K1 launches for "
+                           f"{applies.n} operator applies and {run['its']} "
+                           "iterations")
+    log = op.build_log                  # stages this preconditioner needs
+    build_s = sum(seconds for _, seconds in log.values())
+    cg_s = run["solve_s"] - build_s
+    nums = dict(
+        precond=precond, n=n, dofs=V.dim, iterations=run["its"],
+        true_rel_residual=rel, forms_s=run["forms_s"],
+        operator_s=run["operator_s"], assembly_s=run["assembly_s"],
+        solve_s=run["solve_s"], total_s=run["total_s"], build_s=build_s,
+        cg_s=cg_s, ms_per_iteration=cg_s / run["its"] * 1e3,
+        launches=launches, applies=applies.n,
+        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        **{f"{s}_s": log[s][1] for s in STAGES if s in log},
+        **{f"{s}_how": log[s][0] for s in STAGES if s in log})
+    if precond == "pallas":
+        nums["bytes_per_it"] = op.traffic_model()["bytes_per_it"]
+    _phase("stack", **{"pass": name}, **nums)
+    return dict(nums, op=op, b=run["b"])
+
+
+def stage_times(op, b, its, launches):
+    """Each torch stage of one 'pallas' iteration, and K1, run alone on the
+    pass's own tensors (L2 warm, as inside the solve): the device time of
+    its kernels and their number (torch.profiler), the host time to enqueue
+    it, its calls per pass, the bytes it must move and that bound."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from cutfemx_tpu_torch import stencil as st
+    from cutfemx_tpu_torch.interior_stencil import interior_stencil_apply
+    n, N, nch, table, _ = op._grid_statics()
+    tm = op.traffic_model()
+    r = op.vec_to_grid(torch.where(op.active, b, 0.0))
+    z = r * 0.5
+    rz = torch.dot(r, z)
+
+    def cg_update():   # the vector part of one la.cg_resume iteration
+        alpha = rz / torch.dot(r, z)
+        x = r + alpha * z
+        r2 = r - alpha * z
+        beta = torch.dot(r2, z) / rz
+        return x, z + beta * r, torch.dot(r2, r2)
+
+    applies = launches            # f32 and f64 applies, one K1 each
+    stages = {
+        "K1": (lambda: interior_stencil_apply(
+            n, N, nch, table, op.A_local, op.cube_mask_t, r),
+            applies, tm["stencil_bytes"]),
+        "_band_rest_apply": (lambda: st._band_rest_apply(
+            n, N, nch, table, op._bf_bbox, op._bf_diag, op._bf_fwd,
+            op._bf_rev, r), applies, tm["band_bytes"] + 2 * tm["vec_bytes"]),
+        "_asm_apply_body": (lambda: st._asm_apply_body(
+            n, N, nch, table, op._asm_bbox, op._asm_binv, op.active_grid,
+            r), its, tm["asm_bytes"] + 2 * tm["vec_bytes"]),
+        "_coarse_apply_body": (lambda: st._coarse_apply_body(
+            N, nch, op._c_sel, *op._c_W, op._c_acinv, op.active_grid, r),
+            its, tm["coarse_bytes"] + 2 * tm["vec_bytes"]),
+        "cg_update": (cg_update, its, tm["cg_vec_bytes"]),
+    }
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    reps = 5
+    for name, (fn, calls, nbytes) in stages.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) / reps * 1e3   # enqueue only
+        torch.cuda.synchronize()
+        # a stage of ~100 small launches is enqueued slower than it runs, so
+        # events around it would time the host: sum its kernels' own times
+        with profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0]
+        seen = sum(e.count for e in kernels)
+        if not seen > 0:
+            raise RuntimeError(f"stage {name}: the profiler saw no device "
+                               "time")
+        # a profile can lose the records of its first kernels (K1 showed 3
+        # of its 5 launches): the mean kernel time, times the kernels of a
+        # call, does not depend on how many records came through
+        per_call = -(-seen // reps)
+        ms = sum(e.self_device_time_total for e in kernels) / 1e3 / seen \
+            * per_call
+        _phase("stage", stage=name, device_ms_per_call=ms,
+               kernels_per_call=per_call, kernel_records=seen,
+               host_enqueue_ms_per_call=host_ms, calls_per_pass=calls,
+               device_ms_per_pass=ms * calls,
+               host_enqueue_ms_per_pass=host_ms * calls, bytes=nbytes,
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+
+
+def stack_tensors(op):
+    return op._bf_diag, op._asm_binv, op._c_acinv
+
+
+def f32_precision_check(op, tol=2e-6):
+    """The stack's f32 apply and preconditioner against the same tensors
+    widened to f64, on one seeded vector: a reduced-precision (TF32) matmul
+    route would miss ``tol`` (relative to max|y|) by orders of magnitude."""
+    import torch
+    from cutfemx_tpu_torch import stencil as st
+
+    def wide(v):
+        if isinstance(v, torch.Tensor) and v.is_floating_point():
+            return v.double()
+        if isinstance(v, tuple):
+            return tuple(wide(a) for a in v)
+        return v
+
+    args = (*op._grid_statics(), op._asm_bbox, op._bf_bbox, op._c_sel,
+            op.A_local, op.cube_mask_t, op.active_grid, op.identity_grid,
+            op._bf_diag, op._bf_fwd, op._bf_rev, op._asm_binv, *op._c_W,
+            op._c_acinv)
+    gen = torch.Generator(device=op.device).manual_seed(0)
+    x = torch.randn(op.gsize, device=op.device, generator=gen)
+    x = torch.where(op.grid_valid.reshape(-1), x, 0.0)
+    errs = {}
+    for name, f32, f64 in zip(("apply", "M"), st._pallas_ops(*args),
+                              st._pallas_ops(*wide(args))):
+        want = f64(x.double())
+        errs[name] = float((f32(x).double() - want).abs().max()
+                           / want.abs().max())
+        if not errs[name] <= tol:
+            raise RuntimeError(f"stack {name} in f32 is {errs[name]} from "
+                               f"f64 (> {tol}): a reduced-precision matmul?")
+    _phase("f32_precision", tol=tol, **{f"{k}_rel_err": v
+                                        for k, v in errs.items()})
+
+
+def stack_phase(ct, dev, mesh, phi, V, profile=False):
+    """bench.py's step at n = 48 with precond="pallas" on a static level
+    set: warm-up + two timed passes that adopt the cached builds, then one
+    pass with the cache cleared. Returns the K1 launches of the first
+    three passes."""
+    import torch
+    from cutfemx_tpu_torch import interior_stencil as ist
+    from cutfemx_tpu_torch import stencil as st
+    st._BUILD_CACHE.clear()
+    ist.launches = 0
+    passes = [stack_pass(ct, dev, mesh, phi, V, p, N_SLICE)
+              for p in ("warmup", "timed1", "timed2")]
+    main_path_launches = ist.launches
+    t1, t2 = passes[1], passes[2]
+    if t1["iterations"] != t2["iterations"]:
+        raise RuntimeError(f"stack: timed passes took {t1['iterations']} "
+                           f"and {t2['iterations']} iterations")
+    band = max(ITERATION_BAND_MIN,
+               ITERATION_BAND * JAX_CPU_ITERATIONS_N48_FOLD2)
+    if abs(t1["iterations"] - JAX_CPU_ITERATIONS_N48_FOLD2) > band:
+        raise RuntimeError(f"stack: {t1['iterations']} iterations, JAX-CPU "
+                           f"asm-fold2 reference "
+                           f"{JAX_CPU_ITERATIONS_N48_FOLD2} (+-{band:.1f})")
+    for t in (t1, t2):
+        how = [t[f"{s}_how"] for s in STAGES]
+        if how != ["adopted"] * 3:
+            raise RuntimeError(f"stack: a timed pass did not adopt every "
+                               f"cached build: {dict(zip(STAGES, how))}")
+    stage_times(t2["op"], t2["b"], t2["iterations"], t2["launches"])
+    f32_precision_check(t2["op"])
+    warm = stack_tensors(t2["op"])
+    passes.clear()
+    del t1, t2
+    st._BUILD_CACHE.clear()
+    cold = stack_pass(ct, dev, mesh, phi, V, "cold", N_SLICE)
+    how = [cold[f"{s}_how"] for s in STAGES]
+    if how != ["built"] * 3:
+        raise RuntimeError(f"stack: the cold pass built {how}")
+    # every scatter of the builds is a sorted sum: a second build of the
+    # same cut gives the same bits
+    for name, a, b in zip(("fold", "asm", "coarse"), warm,
+                          stack_tensors(cold["op"])):
+        if a is b or not torch.equal(a, b):
+            raise RuntimeError(f"stack: two builds of the {name} tensors "
+                               "differ (or the cold pass adopted)")
+    del cold, warm
+    if profile:
+        profile_pass(ct, mesh, phi, V, precond="pallas")
+    return main_path_launches
+
+
+def compare_phase(ct, dev, mesh, phi, V, n, preconds):
+    """Each preconditioner on the same step: a first pass from a cleared
+    build cache, then one that adopts what it can (the evidence behind
+    solve_cg's 'auto' rule)."""
+    from cutfemx_tpu_torch import stencil as st
+    for precond in preconds:
+        st._BUILD_CACHE.clear()
+        for name in ("compare_cold", "compare_adopting"):
+            stack_pass(ct, dev, mesh, phi, V, name, n, precond)
+    st._BUILD_CACHE.clear()
+
+
+def large_phase(ct, dev, n):
+    """A larger box (n = 108 is bench.py's large size, 10,218,313 dofs): the
+    stack from a cleared build cache and adopting, then 'asm' and 'jacobi'
+    beside it."""
+    import torch
+    t0 = time.perf_counter()
+    mesh, phi, V = setup(ct, n, dev, torch.float32)
+    _phase(f"n{n}_setup", host_setup_s=time.perf_counter() - t0, dofs=V.dim)
+    compare_phase(ct, dev, mesh, phi, V, n,
+                  ("pallas", "asm", "jacobi", "auto"))
+    _phase(f"n{n}_done", seconds=time.perf_counter() - t0)
+
+
 def main():
     import argparse
     import torch
@@ -420,7 +729,14 @@ def main():
                     help="also time the kernel built from this source (an "
                          "earlier interior_stencil.cu), in turns with K1")
     ap.add_argument("--profile", action="store_true",
-                    help="profile one more pass of the slice")
+                    help="profile one more pass of the slice and of the "
+                         "stack")
+    ap.add_argument("--compare-preconds", action="store_true",
+                    help="also run every preconditioner on the n = 48 step")
+    for n in LARGE_SIZES:
+        ap.add_argument(f"--n{n}", action="store_true",
+                        help=f"also run the stack, 'asm' and 'jacobi' at "
+                             f"n = {n}")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is visible")
@@ -451,9 +767,30 @@ def main():
     _phase("small_done", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
-    launches = slice_phase(ct, dev, args.profile)
-    _phase("slice_done", seconds=time.perf_counter() - t0,
+    # bench.py runs with JAX's default f32: f32 level set and quadrature
+    mesh, phi, V = setup(ct, N_SLICE, dev, torch.float32)
+    host_setup_s = time.perf_counter() - t0
+    jacobi_launches = slice_phase(ct, dev, mesh, phi, V, host_setup_s,
+                                  args.profile)
+    _phase("slice_done", seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    stack_small_phase(ct, dev)
+    launches = stack_phase(ct, dev, mesh, phi, V, args.profile)
+    _phase("stack_done", seconds=time.perf_counter() - t0,
            total_seconds=time.perf_counter() - t_all)
+    for path, count in (("jacobi", jacobi_launches), ("pallas", launches)):
+        if count <= 0:
+            raise RuntimeError(f"the {path} path launched no K1 kernel")
+    if args.compare_preconds:
+        t0 = time.perf_counter()
+        compare_phase(ct, dev, mesh, phi, V, N_SLICE, (
+            "jacobi", "asm", "asm2", "asm-fold", "pallas", "auto"))
+        _phase("compare_done", seconds=time.perf_counter() - t0)
+    del mesh, phi, V
+    for n in LARGE_SIZES:
+        if getattr(args, f"n{n}"):
+            large_phase(ct, dev, n)
 
     # the main path's shape: the slice's grid and mask in f32, the CG's type
     main_row = next(r for r in k if r["shape"] == "n48_bench"
@@ -463,6 +800,7 @@ def main():
         "source": "cutfemx_tpu_torch/csrc/interior_stencil.cu",
         "replaces": "cutfemx_tpu/pallas_stencil.py:71",
         "launches": launches,
+        "launches_by_path": {"jacobi": jacobi_launches, "pallas": launches},
         **{key: main_row[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")},
         "bound_by": "bytes",

@@ -14,7 +14,7 @@ from .functionspace import Function
 from .stencil import StencilCutOperator
 
 __all__ = ["operator_from_reference", "function_from_reference",
-           "GRID_STATE_KEYS", "GRID_LAYOUT_KEYS"]
+           "GRID_STATE_KEYS", "GRID_LAYOUT_KEYS", "STACK_KEYS"]
 
 # a cutfemx_tpu StencilCutOperator's _grid_statics() + _grid_arrays()
 GRID_STATE_KEYS = ("n", "N", "nch", "table", "gsize", "A_local",
@@ -22,6 +22,9 @@ GRID_STATE_KEYS = ("n", "N", "nch", "table", "gsize", "A_local",
                    "rest_rows_grid", "rest_cols_grid", "permg", "sortedg")
 # its dof <-> grid layout maps, needed for the dof-vector entry points
 GRID_LAYOUT_KEYS = ("grid_valid", "grid_gather", "dof_to_grid", "active")
+# its built preconditioner stack, under the attribute names of both packages
+STACK_KEYS = ("_bf_diag", "_bf_fwd", "_bf_rev", "_bf_bbox", "_asm_binv",
+              "_asm_bbox", "_c_W", "_c_sel", "_c_acinv")
 
 
 def operator_from_reference(arrays, device, dtype):
@@ -32,8 +35,11 @@ def operator_from_reference(arrays, device, dtype):
     that order of names); ``rest_mats``, ``rest_rows_grid`` and
     ``rest_cols_grid`` are sequences of arrays. With the GRID_LAYOUT_KEYS
     too (``active`` may be None), the operator also takes dof vectors
-    (``__call__``, ``diagonal``, ``solve_cg``). Matrices are cast to
-    ``dtype`` on ``device``."""
+    (``__call__``, ``diagonal``, ``solve_cg``). Any of STACK_KEYS present
+    (the reference's fold, ASM and coarse tensors; ``_bf_fwd``, ``_bf_rev``
+    and ``_c_W`` are sequences, ``_bf_rev`` may be None) is adopted as
+    built, so a solve runs on the reference's own preconditioner. Matrices
+    are cast to ``dtype`` on ``device``."""
     missing = [k for k in GRID_STATE_KEYS if k not in arrays]
     if missing:
         raise KeyError(f"reference grid state lacks {missing}")
@@ -61,15 +67,37 @@ def operator_from_reference(arrays, device, dtype):
     op.rest_mats = tuple(torch.tensor(np.asarray(m), dtype=dtype,
                                       device=dev)
                          for m in arrays["rest_mats"])
-    op.rest_rows_grid = tuple(ints(r) for r in arrays["rest_rows_grid"])
-    op.rest_cols_grid = tuple(ints(c) for c in arrays["rest_cols_grid"])
+    op._rest_rows_grid_host = tuple(
+        np.asarray(r, np.int64) for r in arrays["rest_rows_grid"])
+    op._rest_cols_grid_host = tuple(
+        np.asarray(c, np.int64) for c in arrays["rest_cols_grid"])
+    op.rest_rows_grid = tuple(ints(r) for r in op._rest_rows_grid_host)
+    op.rest_cols_grid = tuple(ints(c) for c in op._rest_cols_grid_host)
+    op._active_grid_host = np.asarray(arrays["active_grid"], bool)
     # the reference sums rows in sorted (permg, sortedg) order; the port
     # takes that order as permutation + run lengths
     sortedg = np.asarray(arrays["sortedg"]).astype(np.int64)
     op._permg = ints(arrays["permg"])
     op._seg_lengths = torch.tensor(
         np.bincount(sortedg, minlength=op.gsize), device=dev)
-    op._arrays64 = None
+    op._init_stack_state()
+
+    def mats(a):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    for k in STACK_KEYS:
+        if k not in arrays:
+            continue
+        v = arrays[k]
+        if k in ("_bf_bbox", "_asm_bbox"):
+            v = tuple(int(i) for i in v)
+        elif k == "_c_sel":
+            v = tuple(tuple(int(i) for i in row) for row in v)
+        elif k in ("_bf_fwd", "_bf_rev", "_c_W"):
+            v = None if v is None else tuple(mats(a) for a in v)
+        else:
+            v = mats(v)
+        setattr(op, k, v)
     if all(k in arrays for k in GRID_LAYOUT_KEYS):
         op.grid_valid = torch.tensor(
             np.asarray(arrays["grid_valid"], bool), device=dev)

@@ -28,11 +28,17 @@ from test_torch_cuda import stencil_inputs as _stencil_inputs  # noqa: E402
 N_BOX, RADIUS, GAMMA, DEGREE = 8, 0.46, 40.0, 2
 
 
-def bench_problem(pkg, fdtype, n=N_BOX, device=None, phi_dtype=None):
+def bench_problem(pkg, fdtype, n=N_BOX, device=None, phi_dtype=None,
+                  degree=DEGREE, level_set=None, radius=RADIUS, rhs=True):
     """bench.py's moving-domain step up to assembly, in ``pkg``
     (cutfemx_tpu or cutfemx_tpu_torch). The port gets ``device`` and
-    ``phi_dtype``; the level set and all inputs come from the same numpy
-    expressions in both packages."""
+    ``phi_dtype``; the level set (the bench's sphere of ``radius`` unless
+    ``level_set`` gives another) and all inputs come from the same numpy
+    expressions in both packages. ``rhs=False`` leaves the load vector
+    unassembled (``b`` is None)."""
+    if level_set is None:
+        def level_set(x):
+            return np.sqrt(x[0] ** 2 + x[1] ** 2 + x[2] ** 2) - radius
     import importlib
     fem = importlib.import_module(pkg.__name__ + ".fem")
     d = importlib.import_module(pkg.__name__ + ".forms.dsl")
@@ -42,13 +48,12 @@ def bench_problem(pkg, fdtype, n=N_BOX, device=None, phi_dtype=None):
     mesh = pkg.mesh.create_box((-1, -1, -1), (1, 1, 1), (n, n, n))
     Vphi = pkg.functionspace(mesh, ("Lagrange", 1), **space_kw)
     phi = pkg.Function(Vphi, name="phi", **fn_kw)
-    phi.interpolate(lambda x: np.sqrt(x[0] ** 2 + x[1] ** 2 + x[2] ** 2)
-                    - RADIUS)
-    V = pkg.functionspace(mesh, ("Lagrange", DEGREE), **space_kw)
+    phi.interpolate(level_set)
+    V = pkg.functionspace(mesh, ("Lagrange", degree), **space_kw)
     cd = pkg.cut(phi)
     inside = pkg.locate_entities(cd, "phi<0")
-    vol = pkg.runtime_quadrature(cd, "phi<0", 2 * DEGREE)
-    srf = pkg.runtime_quadrature(cd, "phi=0", 2 * DEGREE)
+    vol = pkg.runtime_quadrature(cd, "phi<0", 2 * degree)
+    srf = pkg.runtime_quadrature(cd, "phi=0", 2 * degree)
     gp = pkg.ghost_penalty_facets(cd, "phi<0")
     dxo = Measure("dx", domain=mesh, subdomain_data=[inside, vol])
     dxg = Measure("dx", domain=mesh, subdomain_data=srf)
@@ -68,9 +73,8 @@ def bench_problem(pkg, fdtype, n=N_BOX, device=None, phi_dtype=None):
     L = f * v * dxo + (-d.dot(d.grad(v), ng) * ue
                        + GAMMA / h * ue * v) * dxg
     af = fem.form(a, dtype=fdtype)
-    Lf = fem.form(L, dtype=fdtype)
     dom = fem.active_domain(af)
-    b = fem.assemble_vector(Lf)
+    b = fem.assemble_vector(fem.form(L, dtype=fdtype)) if rhs else None
     return dict(mesh=mesh, V=V, phi=phi, vol=vol, srf=srf, gp=gp, ng=ng,
                 af=af, dom=dom, b=b)
 

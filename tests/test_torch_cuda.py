@@ -1,5 +1,6 @@
 """cutfemx_tpu_torch on a CUDA card: the hand-written kernel against its
-plain version, and run-to-run determinism of the grid apply.
+plain version, run-to-run determinism of the grid apply and of the
+preconditioner builds, and the production stack against CPU tensors.
 
 Imports neither JAX nor cutfemx_tpu, so it runs on a machine without
 them: ``python -m pytest --noconftest tests/test_torch_cuda.py``. Every
@@ -128,23 +129,21 @@ def test_kernel_runtime_table(cuda_device, n, dtype, tol):
     assert float((y - y_ref).abs().max()) <= tol * float(y_ref.abs().max())
 
 
-@pytest.mark.cuda
-def test_grid_apply_is_deterministic_on_the_card(cuda_device):
-    """The element path sums with a sorted segment sum, not atomics: two
-    applies on one input agree bitwise."""
+def cut_operator(device, dtype):
+    """The bench form at n = 8 (r = 0.46, P2) as a StencilCutOperator on
+    ``device``, with a right-hand side."""
     import cutfemx_tpu_torch as ct
     from cutfemx_tpu_torch import fem
     from cutfemx_tpu_torch.forms.dsl import (CellDiameter, FacetNormal,
                                              TestFunction, TrialFunction,
                                              avg, dot, grad, inner, jump)
     from cutfemx_tpu_torch.forms.measure import Measure
-    from cutfemx_tpu_torch.stencil import (StencilCutOperator,
-                                           _grid_apply_body)
+    from cutfemx_tpu_torch.stencil import StencilCutOperator
     mesh = ct.mesh.create_box((-1, -1, -1), (1, 1, 1), (8, 8, 8))
-    Vphi = ct.functionspace(mesh, ("Lagrange", 1), device=cuda_device)
+    Vphi = ct.functionspace(mesh, ("Lagrange", 1), device=device)
     phi = ct.Function(Vphi, name="phi", dtype=torch.float64)
     phi.interpolate(lambda x: np.sqrt(x[0]**2 + x[1]**2 + x[2]**2) - 0.46)
-    V = ct.functionspace(mesh, ("Lagrange", 2), device=cuda_device)
+    V = ct.functionspace(mesh, ("Lagrange", 2), device=device)
     cd = ct.cut(phi)
     dxo = Measure("dx", domain=mesh, subdomain_data=[
         ct.locate_entities(cd, "phi<0"), ct.runtime_quadrature(cd, "phi<0",
@@ -159,9 +158,63 @@ def test_grid_apply_is_deterministic_on_the_card(cuda_device):
     a += (-dot(grad(u), ng) * v - dot(grad(v), ng) * u
           + 40.0 / h * u * v) * dxg
     a += 0.1 * avg(h) * inner(jump(grad(u), nf), jump(grad(v), nf)) * dSg
-    af = fem.form(a, dtype=torch.float32)
-    op = StencilCutOperator(af, fem.active_domain(af))
+    af = fem.form(a, dtype=dtype)
+    b = fem.assemble_vector(fem.form((1.0 * v) * dxo, dtype=dtype))
+    return StencilCutOperator(af, fem.active_domain(af)), b
+
+
+@pytest.mark.cuda
+def test_grid_apply_is_deterministic_on_the_card(cuda_device):
+    """The element path sums with a sorted segment sum, not atomics: two
+    applies on one input agree bitwise."""
+    from cutfemx_tpu_torch.stencil import _grid_apply_body
+    op, _ = cut_operator(cuda_device, torch.float32)
     x = torch.randn(op.gsize, device=cuda_device)
     y1 = _grid_apply_body(*op._grid_statics(), *op._grid_arrays(), x)
     y2 = _grid_apply_body(*op._grid_statics(), *op._grid_arrays(), x)
     assert torch.equal(y1, y2)
+
+
+@pytest.mark.cuda
+def test_stack_builds_are_bitwise_repeatable_on_the_card(cuda_device):
+    """The fold, ASM and coarse builds scatter by sorted segment sums: two
+    builds of one cut agree bitwise, so the build cache's fingerprints and
+    the iteration counts repeat."""
+    from cutfemx_tpu_torch import stencil as st
+    built = []
+    for _ in range(2):
+        st._BUILD_CACHE.clear()
+        op, _ = cut_operator(cuda_device, torch.float32)
+        op._ops("pallas")
+        assert [op.build_log[s][0] for s in ("fold", "asm", "coarse")] == \
+            ["built"] * 3
+        built.append((op._bf_diag, *op._bf_fwd, op._asm_binv, op._c_acinv))
+    st._BUILD_CACHE.clear()
+    for a, b in zip(*built):
+        assert a is not b and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precond", ["asm", "asm2", "asm-fold", "asm-fold2",
+                                     "pallas"])
+def test_stack_solve_on_the_card_matches_cpu_tensors(cuda_device, precond):
+    """The same f64 solve on CUDA and on CPU tensors: iterations +-2, x to
+    1e-6 on active dofs; every preconditioner's operator apply, gather or
+    folded, launches the kernel."""
+    from cutfemx_tpu_torch import interior_stencil as ist
+    from cutfemx_tpu_torch import stencil as st
+    out = []
+    for dev in (torch.device("cpu"), cuda_device):
+        st._BUILD_CACHE.clear()
+        op, b = cut_operator(dev, torch.float64)
+        before = ist.launches
+        x, its, _ = op.solve_cg(b, rtol=1e-8, maxiter=800, precond=precond,
+                                refine=False)
+        out.append((torch.where(op.active, x, 0.0).cpu(), its,
+                    ist.launches - before))
+    st._BUILD_CACHE.clear()
+    (x_c, it_c, l_c), (x_g, it_g, l_g) = out
+    assert abs(it_c - it_g) <= 2
+    assert float((x_c - x_g).abs().max()) <= 1e-6 * float(x_c.abs().max())
+    assert l_c == 0
+    assert l_g == it_g + 1            # one per iteration + the first residual

@@ -1,6 +1,7 @@
-"""The slice as it runs: f32 forms, Jacobi CG inside f64 iterative
-refinement, cutfemx_tpu_torch against cutfemx_tpu on the bench problem
-(n = 8, r = 0.46, P2; CPU, the kernel's plain version)."""
+"""The slice as it runs: f32 forms, Jacobi CG and the production stack
+inside f64 iterative refinement, cutfemx_tpu_torch against cutfemx_tpu on
+the bench problem (n = 8, r = 0.46, P2; CPU, the kernel's plain
+version)."""
 
 import numpy as np
 import pytest
@@ -90,3 +91,28 @@ def test_grid_apply_is_deterministic(port):
     y1 = _grid_apply_body(*op._grid_statics(), *op._grid_arrays(), Xf)
     y2 = _grid_apply_body(*op._grid_statics(), *op._grid_arrays(), Xf)
     assert torch.equal(y1, y2)
+
+
+def test_stack_ir_solve_iterations_and_true_residual(ref, port):
+    """The production stack as the bench runs it: the reference with
+    precond="asm-fold2" (the stack with its interior apply as an einsum;
+    its Pallas kernel has only the slow interpret mode here), the port
+    with precond="pallas". Both reach the tolerance by their own f64
+    measurement, at iteration counts within the slack above."""
+    xj, itj, resj = ref["op"].solve_cg(ref["b"], rtol=RTOL, maxiter=2000,
+                                       precond="asm-fold2")
+    assert resj <= RTOL * float(jnp.linalg.norm(ref["b"]))
+    op, b = port["op"], port["b"]
+    x, its, res = op.solve_cg(b, rtol=RTOL, maxiter=2000, precond="pallas")
+    assert x.dtype == torch.float32 and torch.isfinite(x).all()
+    assert res <= RTOL * float(torch.linalg.norm(b.double()))
+    assert abs(its - int(itj)) <= ITS_SLACK, (its, int(itj))
+    assert [op.build_log[s][0] for s in ("fold", "asm", "coarse")] == \
+        ["built"] * 3
+    # the true residual once more, by the gather apply in f64
+    from cutfemx_tpu_torch.stencil import _grid_apply_body
+    bg = op.vec_to_grid(torch.where(op.active, b, 0.0)).double()
+    r = bg - _grid_apply_body(*op._grid_statics(), *op._grid_arrays_f64(),
+                              op.vec_to_grid(x).double())
+    r = torch.where(op.active_grid, r, 0.0)
+    assert float(torch.linalg.norm(r)) <= RTOL * float(torch.linalg.norm(bg))

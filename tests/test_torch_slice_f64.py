@@ -1,6 +1,7 @@
 """cutfemx_tpu_torch against cutfemx_tpu on the bench problem in f64:
 cut quadrature, the level-set normal, assembly, the grid-layout apply and
-the Jacobi solve (n = 8, r = 0.46, P2; CPU, the kernel's plain version)."""
+the Jacobi solve (n = 8, r = 0.46, P2; CPU, the kernel's plain version).
+The other preconditioners are in test_torch_stack.py."""
 
 import numpy as np
 import pytest
@@ -206,7 +207,7 @@ def test_jacobi_solve_f64_matches(ref, port):
     assert abs(int(it0) - it1) <= 2
 
 
-def test_other_preconditioners_name_their_roadmap_item(port):
-    for pc in ("auto", "pallas", "asm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item"):
+def test_unknown_precond_raises_value_error(port):
+    for pc in ("ilu", "asm3", ""):
+        with pytest.raises(ValueError, match="unknown precond"):
             port["op"].solve_cg(port["b"], precond=pc)
