@@ -36,6 +36,25 @@ Phases, each printing one line of numbers:
    apply, coarse apply, CG vector updates) and K1 timed alone on the
    pass's tensors, with its calls per pass and the bytes it must move.
 
+8. flower_parity: the 2D flower Poisson problem (BASELINE config 1; P1,
+   f64, direct solve) at n = 16, 32 and 64, its L2 error against the
+   reference's pinned values (1e-6 relative);
+9. flower_large: the flower at n = 1024 (2,097,152 triangles), assembled
+   on the card and solved by the element-batched CutOperator's CG
+   (Jacobi, then Chebyshev; rtol 1e-10), with the true relative residual
+   from one apply, the L2 error, and the n = 512 direct solve's error
+   for the convergence rate; then one profiled Jacobi CG pass (device
+   idle share) and the apply (``_matfree_apply_sorted``) alone against
+   its bytes bound;
+10. interface: the two-domain interface problem (config 3) at n = 128 and
+    256, block direct solve: both phases' errors, the jump, their rates,
+    and no zero rows after deactivation;
+11. moving_heat: the moving-domain heat equation (config 5) at n = 256,
+    10 steps of re-cut, re-assembly and solve, each step's error below
+    5e-3 and its time split.
+The 2D phases print which stages ran on the host (classification, the
+CSR matrices and the direct solves: host code by the reference's design).
+
 ``--profile`` adds one pass of the slice and one of the stack under
 ``torch.profiler`` (device busy and idle share, K1's device time, the top
 device kernels). ``--parent-source CU`` builds an earlier
@@ -87,6 +106,18 @@ KERNEL_REPS, PLAIN_REPS = 40, 10
 FLUSH_BYTES = 256 * 2 ** 20         # rewritten between timed calls > L2
 SLEEP_CYCLES_PER_CALL = 4_000_000   # ~2 ms of queue ahead of each call
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM published peak, 700 W
+
+# The 2D family (BASELINE configs 1, 3 and 5), all P1 in f64.
+# tests/test_l2_parity.py's pinned L2 errors of the reference's flower
+# problem, copied (not imported): the port is held to the same numbers.
+FLOWER_PINNED = {16: 1.052731e-02, 32: 2.934306e-03, 64: 7.978235e-04}
+PINNED_RTOL = 1e-6
+N_FLOWER_LARGE, N_FLOWER_DIRECT = 1024, 512
+FLOWER_CG_MAXITER = 50_000
+FLOWER_TRUE_RESIDUAL = 1e-9
+RATE_BAND = (1.7, 2.2)               # tests/test_l2_parity.py's
+N_INTERFACE = (128, 256)
+N_HEAT, HEAT_STEPS, HEAT_MAX_ERROR = 256, 10, 5e-3  # test_dg_and_moving
 
 
 def _phase(phase, **numbers):
@@ -721,6 +752,176 @@ def large_phase(ct, dev, n):
     _phase(f"n{n}_done", seconds=time.perf_counter() - t0)
 
 
+def _rate(coarse, fine, what):
+    rate = float(np.log2(coarse / fine))
+    if not RATE_BAND[0] < rate < RATE_BAND[1]:
+        raise RuntimeError(f"{what}: rate {rate} outside {RATE_BAND}")
+    return rate
+
+
+def flower_parity_phase(dev, card):
+    """The flower problem, direct solve, against the reference's pinned
+    L2 errors."""
+    from cutfemx_tpu_torch.demos import demo_poisson
+    for n, pinned in FLOWER_PINNED.items():
+        out = demo_poisson.run(n, device=dev)
+        rel = abs(out["l2_error"] - pinned) / pinned
+        if not rel < PINNED_RTOL:
+            raise RuntimeError(f"flower n={n}: L2 error {out['l2_error']} "
+                               f"vs pinned {pinned} ({rel} relative)")
+        _phase("flower_parity", **out, pinned=pinned, rel_to_pinned=rel,
+               card=card)
+
+
+def _matfree_bytes(op, x):
+    """Bytes one apply must move: every input read once (element matrices,
+    column maps, the scatter plan, x and the active mask), y written
+    once."""
+    tensors = [*op._mats, *op._cols, op._perm, op._lengths, op.active, x]
+    return sum(t.numel() * t.element_size() for t in tensors) \
+        + x.numel() * x.element_size()
+
+
+def matfree_profile(P, card):
+    """One Jacobi CG pass under torch.profiler (the device's busy time and
+    idle share), then the apply alone: its device time and kernels per
+    call, the host's enqueue time, and its bytes bound."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from cutfemx_tpu_torch import fem
+    from cutfemx_tpu_torch.demos import demo_poisson
+    op = P["op"]
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        _, its, _ = op.solve_cg(P["b"], rtol=demo_poisson.CG_RTOL,
+                                maxiter=FLOWER_CG_MAXITER, precond="jacobi")
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    if not busy_ms > 0:
+        raise RuntimeError("the profiler saw no device time in the CG pass")
+    _phase("matfree_profile", n=P["n"], precond="jacobi", iterations=its,
+           wall_ms=wall_ms, device_busy_ms=busy_ms,
+           device_idle_share=1 - busy_ms / wall_ms, card=card)
+
+    x = torch.where(op.active, P["b"], 0.0)
+
+    def apply():
+        return fem._matfree_apply_sorted(op._mats, op._cols, op._perm,
+                                         op._lengths, op.active, x)
+    reps = 20
+    apply()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        apply()
+    host_ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        for _ in range(reps):
+            apply()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    seen = sum(e.count for e in kernels)
+    if not seen > 0:
+        raise RuntimeError("the profiler saw no device time in the apply")
+    per_call = -(-seen // reps)
+    ms = sum(e.self_device_time_total for e in kernels) / 1e3 / seen \
+        * per_call
+    nbytes = _matfree_bytes(op, x)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    _phase("stage", stage="_matfree_apply_sorted", n=P["n"],
+           device_ms_per_call=ms, kernels_per_call=per_call,
+           kernel_records=seen, host_enqueue_ms_per_call=host_ms,
+           calls_per_pass=its + 1, device_ms_per_pass=ms * (its + 1),
+           bytes=nbytes, bound_ms=bound_ms, share=bound_ms / ms,
+           top=[dict(name=e.key[:60], ms=e.self_device_time_total / 1e3
+                     / reps, count=e.count // reps)
+                for e in sorted(kernels,
+                                key=lambda e: -e.self_device_time_total)],
+           card=card)
+
+
+def flower_large_phase(dev, card):
+    """The flower at n = 1024 on the card: CutOperator CG with Jacobi and
+    Chebyshev, the true residual and the L2 error; the n = 512 direct
+    solve for the rate; then the profile of one CG pass."""
+    import torch
+    from cutfemx_tpu_torch.demos import demo_poisson
+    P = demo_poisson.problem(N_FLOWER_LARGE, device=dev)
+    demo_poisson.operator(P)
+    _phase("flower_large_setup", n=N_FLOWER_LARGE, **P["counts"],
+           **P["times"], card=card)
+    errs = {}
+    for precond in ("jacobi", "chebyshev"):
+        x, info = demo_poisson.solve(P, "cg", precond=precond,
+                                     maxiter=FLOWER_CG_MAXITER)
+        if not (torch.isfinite(x).all() and x.shape == (P["V"].dim,)
+                and x.device.type == torch.device(dev).type):
+            raise RuntimeError(f"flower {precond}: non-finite, misshapen or "
+                               "off-card solution")
+        if not info["iterations"] < FLOWER_CG_MAXITER:
+            raise RuntimeError(f"flower {precond}: no convergence in "
+                               f"{FLOWER_CG_MAXITER} iterations")
+        if not info["true_rel_residual"] <= FLOWER_TRUE_RESIDUAL:
+            raise RuntimeError(f"flower {precond}: true relative residual "
+                               f"{info['true_rel_residual']}")
+        errs[precond] = demo_poisson.l2_error(P, x)
+        _phase("flower_large", n=N_FLOWER_LARGE, precond=precond,
+               l2_error=errs[precond], **info, card=card)
+    direct = demo_poisson.run(N_FLOWER_DIRECT, device=dev)
+    rates = {p: _rate(direct["l2_error"], e, f"flower {p}")
+             for p, e in errs.items()}
+    _phase("flower_rate", n_coarse=N_FLOWER_DIRECT, n_fine=N_FLOWER_LARGE,
+           coarse=direct, rates=rates, card=card)
+    matfree_profile(P, card)
+
+
+def interface_phase(dev, card):
+    from cutfemx_tpu_torch.demos import demo_interface_poisson
+    outs = []
+    for n in N_INTERFACE:
+        out = demo_interface_poisson.run(n, device=dev)
+        if any(out["zero_rows"]):
+            raise RuntimeError(f"interface n={n}: zero rows "
+                               f"{out['zero_rows']}")
+        if not all(np.isfinite([out["err1"], out["err2"], out["jump"]])):
+            raise RuntimeError(f"interface n={n}: non-finite errors")
+        outs.append(out)
+    c, f = outs
+    rates = dict(err1=_rate(c["err1"], f["err1"], "interface err1"),
+                 err2=_rate(c["err2"], f["err2"], "interface err2"),
+                 jump=float(np.log2(c["jump"] / f["jump"])))
+    for out in outs:
+        _phase("interface", **out, card=card)
+    _phase("interface_rate", n_coarse=N_INTERFACE[0],
+           n_fine=N_INTERFACE[1], rates=rates, card=card)
+
+
+def moving_heat_phase(dev, card):
+    from cutfemx_tpu_torch.demos import demo_moving_heat
+    out = demo_moving_heat.run(N_HEAT, HEAT_STEPS, device=dev)
+    errors = out["errors"]
+    if not (len(errors) == HEAT_STEPS and np.all(np.isfinite(errors))
+            and max(errors) < HEAT_MAX_ERROR):
+        raise RuntimeError(f"moving heat: errors {errors}")
+    for step in out["split"]:
+        _phase("moving_heat", n=N_HEAT, dofs=out["dofs"], **step,
+               host_stages=["classify", "assemble_matrix CSR",
+                            "deactivate_outside", "direct_solve"],
+               card=card)
+    _phase("moving_heat_done", n=N_HEAT, steps=HEAT_STEPS,
+           max_error=max(errors), total_s=sum(s["total_s"]
+                                              for s in out["split"]),
+           card=card)
+
+
 def main():
     import argparse
     import torch
@@ -791,6 +992,17 @@ def main():
     for n in LARGE_SIZES:
         if getattr(args, f"n{n}"):
             large_phase(ct, dev, n)
+
+    # the 2D family: no K1 on this path (the element-batched CutOperator)
+    t0 = time.perf_counter()
+    before = ist.launches
+    flower_parity_phase(dev, smi)
+    flower_large_phase(dev, smi)
+    interface_phase(dev, smi)
+    moving_heat_phase(dev, smi)
+    _phase("2d_done", seconds=time.perf_counter() - t0,
+           k1_launches=ist.launches - before,
+           total_seconds=time.perf_counter() - t_all)
 
     # the main path's shape: the slice's grid and mask in f32, the CG's type
     main_row = next(r for r in k if r["shape"] == "n48_bench"

@@ -2,9 +2,10 @@
 
 The PyTorch counterpart of ``cutfemx_tpu``: the same module names and
 public functions, with device data held in torch tensors. Every entry point
-that creates device data takes an explicit ``device``; nothing here picks
-CUDA or the CPU on its own. The interior-stencil apply on the card is a
-hand-written CUDA kernel (``interior_stencil.py``, ``csrc/``).
+that creates device data takes a ``device``, which is the CUDA card unless
+the caller asks for another (``device="cpu"``). The interior-stencil apply
+on the card is a hand-written CUDA kernel (``interior_stencil.py``,
+``csrc/``).
 """
 
 import importlib as _importlib
@@ -29,6 +30,7 @@ from .functionspace import (  # noqa: E402,F401
 from .cut import api as _cut_api  # noqa: E402
 
 cut = _cut_api.cut
+update = _cut_api.update
 locate_entities = _cut_api.locate_entities
 runtime_quadrature = _cut_api.runtime_quadrature
 ghost_penalty_facets = _cut_api.ghost_penalty_facets
@@ -38,7 +40,7 @@ CutData = _cut_api.CutData
 __version__ = "0.1.0"
 
 _LAZY_MODULES = ("fem", "la", "level_set", "stencil", "interior_stencil",
-                 "interop")
+                 "interop", "demos")
 _LEVELSET_API = ("normal",)
 
 

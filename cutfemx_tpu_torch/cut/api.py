@@ -1,4 +1,4 @@
-"""Public cut API: cut, locate_entities, runtime_quadrature,
+"""Public cut API: cut, update, locate_entities, runtime_quadrature,
 ghost_penalty_facets — the torch counterpart of ``cutfemx_tpu.cut.api``.
 
 Classification and facet bands are host numpy; runtime quadrature runs on
@@ -19,7 +19,7 @@ from .quadrature import RuntimeQuadratureRules, interface_rules, volume_rules
 from .selector import DOMAIN_INTERSECTED, parse_selector
 
 __all__ = [
-    "cut", "locate_entities", "runtime_quadrature", "CutData",
+    "cut", "update", "locate_entities", "runtime_quadrature", "CutData",
     "ghost_penalty_facets", "interior_facets_for_cells",
 ]
 
@@ -49,6 +49,12 @@ def cut(level_set, entities=None, entity_dim=None, *,
                    edge_max_depth=edge_max_depth)
     return CutData(level_sets, entities=entities, entity_dim=entity_dim,
                    options=options)
+
+
+def update(cut_data: CutData):
+    """Re-classify ``cut_data`` from its level sets' current values (the
+    re-cut of a moving domain)."""
+    cut_data.update()
 
 
 def locate_entities(cut_data: CutData, ls_part: str):

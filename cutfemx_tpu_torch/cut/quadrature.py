@@ -257,7 +257,8 @@ def _push_normal(cell_type, coords, pts, nref):
     return n / torch.where(norm > 0, norm, 1.0)
 
 
-def full_cell_rules(mesh, cells, order, *, device, dtype=torch.float64):
+def full_cell_rules(mesh, cells, order, *, device="cuda",
+                    dtype=torch.float64):
     """Runtime rules covering whole (uncut) cells — the oracle utility the
     reference tests use to check runtime assembly against standard
     assembly."""

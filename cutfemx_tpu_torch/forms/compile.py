@@ -451,14 +451,18 @@ class IntegralKernel:
     # -- public batched entry points ----------------------------------------
 
     def _get(self, kind, dtype, block=(None, None)):
-        """The per-entity kernel of ``kind``, vmapped over entities."""
+        """The per-entity kernel of ``kind`` ("scalar", "vector" or
+        "matrix"), vmapped over entities."""
         key = (kind, str(dtype), block)
         if key in self._batched:
             return self._batched[key]
         if dtype.is_complex:
             raise NotImplementedError(
                 "complex forms (ROADMAP item 9: holomorphic AD)")
-        if kind == "vector":
+        if kind == "scalar":
+            def one(data):
+                return self._entity_scalar(data, {}, dtype)
+        elif kind == "vector":
             varg = self.args[(0, block[0])]
             nv = self._arg_size(varg)
             vkey = varg.key
@@ -494,6 +498,11 @@ class IntegralKernel:
         fn = self._get(kind, dtype, block)
         E = data["coords"].shape[0]
         return torch.cat([fn(d) for d in _chunks(data, E, _ENTITY_CHUNK)])
+
+    def assemble_scalar(self, data, dtype):
+        """-> 0-d tensor: the integrand summed over quadrature points and
+        entities."""
+        return self._run("scalar", data, dtype, (None, None)).sum()
 
     def assemble_vector(self, data, dtype, block=(None, None)):
         """-> (E, nv) element vectors."""

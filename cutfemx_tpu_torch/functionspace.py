@@ -23,9 +23,11 @@ __all__ = ["FunctionSpace", "functionspace", "Function"]
 
 class FunctionSpace:
     """A Lagrange space on a mesh. The dofmap is host numpy; ``device`` is
-    where Functions of the space (and forms over it) keep their data."""
+    where Functions of the space (and forms over it) keep their data: the
+    CUDA card unless the caller asks for another."""
 
-    def __init__(self, mesh: Mesh, family_degree, shape=(), *, device):
+    def __init__(self, mesh: Mesh, family_degree, shape=(), *,
+                 device="cuda"):
         self.device = torch.device(device)
         family, degree = family_degree
         if family not in ("Lagrange", "P", "DG", "Discontinuous Lagrange"):
@@ -321,7 +323,7 @@ def _face_orientation_ids(gv):
     return o * 2 + (n0 > n1).astype(np.int64)
 
 
-def functionspace(mesh: Mesh, family_degree, shape=(), *, device):
+def functionspace(mesh: Mesh, family_degree, shape=(), *, device="cuda"):
     return FunctionSpace(mesh, family_degree, shape, device=device)
 
 

@@ -11,9 +11,11 @@ import numpy as np
 import torch
 
 from .functionspace import Function
+from .la import MatrixCSR
 from .stencil import StencilCutOperator
 
 __all__ = ["operator_from_reference", "function_from_reference",
+           "matrix_from_reference",
            "GRID_STATE_KEYS", "GRID_LAYOUT_KEYS", "STACK_KEYS"]
 
 # a cutfemx_tpu StencilCutOperator's _grid_statics() + _grid_arrays()
@@ -119,3 +121,11 @@ def function_from_reference(V, x):
     f.x = torch.tensor(x, device=V.device)
     return f
 
+
+def matrix_from_reference(A):
+    """The port's MatrixCSR holding a copy of ``A``: a reference
+    ``cutfemx_tpu.la.MatrixCSR`` (anything with ``to_scipy()``) or a SciPy
+    sparse matrix."""
+    import scipy.sparse as sps
+    m = A.to_scipy() if hasattr(A, "to_scipy") else A
+    return MatrixCSR(sps.csr_matrix(m, copy=True))

@@ -248,7 +248,7 @@ class StencilCutOperator:
 
         # element path: all other instances + leftover standard cells,
         # merged and with interior-facet duplicate dofs compressed
-        op_rest = CutOperator(form, domain)
+        op_rest = CutOperator(form, domain, apply_plan=False)
         mats, rows, cols, itypes = [], [], [], []
         for i, inst in enumerate(form.instances):
             Ae = op_rest.element_matrices[i]

@@ -1,6 +1,8 @@
 """cutfemx_tpu_torch on a CUDA card: the hand-written kernel against its
 plain version, run-to-run determinism of the grid apply and of the
-preconditioner builds, and the production stack against CPU tensors.
+preconditioner builds, the production stack against CPU tensors, and the
+2D family's element-batched CutOperator and moving-heat demo against CPU
+tensors.
 
 Imports neither JAX nor cutfemx_tpu, so it runs on a machine without
 them: ``python -m pytest --noconftest tests/test_torch_cuda.py``. Every
@@ -218,3 +220,40 @@ def test_stack_solve_on_the_card_matches_cpu_tensors(cuda_device, precond):
     assert float((x_c - x_g).abs().max()) <= 1e-6 * float(x_c.abs().max())
     assert l_c == 0
     assert l_g == it_g + 1            # one per iteration + the first residual
+
+
+# -- the 2D family on the card ------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precond", ["jacobi", "chebyshev"])
+def test_matfree_solve_on_the_card_matches_cpu_tensors(cuda_device, precond):
+    """The flower problem's element-batched CutOperator on the card and on
+    CPU tensors: applies and diagonal to 1e-12, bitwise-repeatable applies
+    (sorted segment sums), equal CG counts and the same L2 error."""
+    from cutfemx_tpu_torch.demos import demo_poisson
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        P = demo_poisson.problem(48, device=dev)
+        op = demo_poisson.operator(P)
+        x = torch.sin(torch.arange(op.dim, dtype=torch.float64)).to(dev)
+        y = op(x)
+        assert torch.equal(y, op(x))
+        sol, info = demo_poisson.solve(P, "cg", precond=precond)
+        assert sol.device.type == torch.device(dev).type
+        runs[str(dev)] = (y.cpu(), op.diagonal().cpu(), info,
+                          demo_poisson.l2_error(P, sol))
+    (yc, dc, ic, ec), (yg, dg, ig, eg) = runs.values()
+    assert float((yg - yc).abs().max()) <= 1e-12 * float(yc.abs().max())
+    assert float((dg - dc).abs().max()) <= 1e-12 * float(dc.abs().max())
+    assert abs(ig["iterations"] - ic["iterations"]) <= 1
+    assert ig["true_rel_residual"] <= 1e-9
+    assert abs(eg - ec) <= 1e-8 * ec
+
+
+@pytest.mark.cuda
+def test_moving_heat_on_the_card_matches_cpu_tensors(cuda_device):
+    from cutfemx_tpu_torch.demos import demo_moving_heat
+    c = demo_moving_heat.run(n=24, steps=3, device="cpu")["errors"]
+    g = demo_moving_heat.run(n=24, steps=3, device=cuda_device)["errors"]
+    assert np.allclose(g, c, rtol=1e-10, atol=0)

@@ -299,18 +299,33 @@ def test_fp_arrays_sees_every_bit():
     assert not np.array_equal(fp[1], st._fp_arrays([m2])[0])
 
 
-def test_identical_rebuild_adopts_builds(port):
+@pytest.fixture(scope="module")
+def cached(port):
+    """One port operator built from a cleared cache: it builds all three
+    stages and stores them, then solves. The two cache tests below start
+    from this cache state (``restore``) instead of building again."""
+    st._BUILD_CACHE.clear()
+    op = st.StencilCutOperator(port["af"], port["dom"])
+    x, its, _ = op.solve_cg(port["b"], rtol=1e-8, maxiter=600,
+                            precond="asm-fold2", refine=False)
+    assert [op.build_log[s][0] for s in ("fold", "asm", "coarse")] == \
+        ["built"] * 3
+    (key, entry), = st._BUILD_CACHE.items()
+    assert set(entry) == {"fp", "fold", "asm", "coarse"}
+
+    def restore():
+        st._BUILD_CACHE.clear()
+        st._BUILD_CACHE[key] = dict(entry)
+
+    return dict(op=op, x=x, its=its, restore=restore)
+
+
+def test_identical_rebuild_adopts_builds(cached):
     """tests/test_stencil_build_cache.py::test_identical_rebuild_adopts_
     builds: a re-cut and re-assembled operator on the same level set adopts
     all three stages by identity and solves bitwise the same."""
-    st._BUILD_CACHE.clear()
-    op1 = st.StencilCutOperator(port["af"], port["dom"])
-    x1, it1, _ = op1.solve_cg(port["b"], rtol=1e-8, maxiter=600,
-                              precond="asm-fold2", refine=False)
-    assert [op1.build_log[s][0] for s in ("fold", "asm", "coarse")] == \
-        ["built"] * 3
-    assert any("fold" in e and "asm" in e and "coarse" in e
-               for e in st._BUILD_CACHE.values())
+    cached["restore"]()
+    op1 = cached["op"]
     P2 = _port_problem()
     op2 = P2["op"]
     op2._ensure_band_fold()
@@ -323,16 +338,13 @@ def test_identical_rebuild_adopts_builds(port):
     assert op2._c_acinv is op1._c_acinv
     x2, it2, _ = op2.solve_cg(P2["b"], rtol=1e-8, maxiter=600,
                               precond="asm-fold2", refine=False)
-    assert it2 == it1
-    assert torch.equal(x2, x1)
+    assert it2 == cached["its"]
+    assert torch.equal(x2, cached["x"])
 
 
-def test_moved_level_set_invalidates_and_matches_cold(port):
-    st._BUILD_CACHE.clear()
-    op1 = st.StencilCutOperator(port["af"], port["dom"])
-    op1._ops("asm-fold2")               # builds and caches all three stages
-    assert set(next(iter(st._BUILD_CACHE.values()))) == \
-        {"fp", "fold", "asm", "coarse"}
+def test_moved_level_set_invalidates_and_matches_cold(cached):
+    cached["restore"]()
+    op1 = cached["op"]
     # moved interface: fingerprints must differ -> fresh builds
     P2 = _port_problem(radius=0.52)
     op2 = P2["op"]
