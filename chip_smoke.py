@@ -51,9 +51,27 @@ Phases, each printing one line of numbers:
     and no zero rows after deactivation;
 11. moving_heat: the moving-domain heat equation (config 5) at n = 256,
     10 steps of re-cut, re-assembly and solve, each step's error below
-    5e-3 and its time split.
+    5e-3 and its time split;
+12. stokes_parity: cut Stokes (config 4; P1-P1, f64, the manufactured
+    problem of tests/test_stokes.py, block path, direct solve) at n = 16
+    and 32, its velocity and pressure errors against the JAX-CPU
+    reference's (1e-6 relative), the velocity rate > 1.5, and the
+    monolithic MixedCutForm matrix at n = 16 equal to the block
+    composition (max difference 0.0);
+13. stokes_large: the same at n = 128 and 256 (198,147 dofs): errors,
+    rate, time split, the assembly's device-busy share under
+    torch.profiler and peak device memory;
+14. stokes_cylinder: the flow around a cylinder of demos/demo_stokes.py
+    (strong inflow and walls by dirichletbc + apply_lifting) at n = 24
+    against the JAX-CPU reference's flux in/out, |u| on the cylinder and
+    max |u| (1e-6 relative), then at n = 64 with its time split;
+15. newton: both problems of tests/test_nonlinear.py by newton_solve (the
+    reference's iteration counts, |F| under its tolerance), and
+    la.bicgstab with Jacobi on the flower's n = 256 element-batched
+    CutOperator (true relative residual <= 1e-9).
 The 2D phases print which stages ran on the host (classification, the
-CSR matrices and the direct solves: host code by the reference's design).
+CSR matrices, the boundary conditions and the direct solves: host code by
+the reference's design).
 
 ``--profile`` adds one pass of the slice and one of the stack under
 ``torch.profiler`` (device busy and idle share, K1's device time, the top
@@ -118,6 +136,27 @@ FLOWER_TRUE_RESIDUAL = 1e-9
 RATE_BAND = (1.7, 2.2)               # tests/test_l2_parity.py's
 N_INTERFACE = (128, 256)
 N_HEAT, HEAT_STEPS, HEAT_MAX_ERROR = 256, 10, 5e-3  # test_dg_and_moving
+
+# Cut Stokes (config 4): the JAX reference's (cutfemx_tpu, x64, on a CPU)
+# velocity and pressure L2 errors of tests/test_stokes.py's
+# solve_cut_stokes(n), and the values demos/demo_stokes.py prints at its
+# default n = 24 (tests/test_torch_stokes.py's reference_cylinder); PERF.md
+# section 4 gives the command.
+JAX_CPU_STOKES = {16: (0.08469802552587766, 2.1958897399669555),
+                  32: (0.01848262488331663, 1.0549549937272797)}
+JAX_CPU_CYLINDER_N24 = dict(flux_in=1.3310185185185184,
+                            flux_out=1.3314260593338907,
+                            u_gamma=0.013384367014708094,
+                            max_u=1.3982055045620267)
+STOKES_RATE_MIN = 1.5                 # tests/test_stokes.py's
+N_STOKES_LARGE = (128, 256)
+N_CYLINDER = 64
+CYLINDER_MASS_DEFECT = 1e-2
+# tests/test_nonlinear.py's problems: (n, the reference's Newton
+# iterations, its tolerance on the final |F|); the counts are cutfemx_tpu's
+# on a CPU (tests/test_torch_newton.py's newton_problem, PERF.md section 4)
+JAX_CPU_NEWTON = {"fitted": (12, 4, 1e-12), "disk": (24, 4, 1e-11)}
+N_BICGSTAB, BICGSTAB_MAXITER = 256, 20_000
 
 
 def _phase(phase, **numbers):
@@ -922,6 +961,211 @@ def moving_heat_phase(dev, card):
            card=card)
 
 
+def _rel(got, want):
+    return abs(got - want) / abs(want)
+
+
+def stokes_parity_phase(dev, card):
+    """The manufactured cut Stokes problem against the JAX-CPU errors, and
+    the monolithic MixedCutForm matrix against the block composition."""
+    import torch
+    from cutfemx_tpu_torch import fem
+    from cutfemx_tpu_torch.demos import demo_stokes
+    outs = {}
+    for n, (eu, ep) in JAX_CPU_STOKES.items():
+        out = demo_stokes.run_manufactured(n, device=dev)
+        rel = dict(err_u=_rel(out["err_u"], eu), err_p=_rel(out["err_p"], ep))
+        if not max(rel.values()) < PINNED_RTOL:
+            raise RuntimeError(f"stokes n={n}: errors {out['err_u']}, "
+                               f"{out['err_p']} vs JAX-CPU {eu}, {ep}")
+        outs[n] = out
+        _phase("stokes_parity", **out, jax_cpu=dict(err_u=eu, err_p=ep),
+               rel_to_jax_cpu=rel, card=card)
+    (nc, c), (nf, f) = outs.items()
+    rate = float(np.log2(c["err_u"] / f["err_u"]))
+    if not rate > STOKES_RATE_MIN:
+        raise RuntimeError(f"stokes: velocity rate {rate}")
+    P = demo_stokes.problem(nc, device=dev, monolithic=True)
+    if not (isinstance(P["a_form"], fem.MixedCutForm)
+            and P["a_form"].device == torch.device(dev)):
+        raise RuntimeError("stokes: the monolithic form is not a "
+                           "MixedCutForm on the card")
+    mono = fem.assemble_matrix(P["a_form"]).to_scipy()
+    block = fem.assemble_matrix_block(
+        fem.extract_blocks(P["a"], dtype=torch.float64)).to_scipy()
+    diff = float(abs(mono - block).max())
+    if not (mono.shape == block.shape and diff == 0.0):
+        raise RuntimeError(f"stokes: monolithic matrix differs from the "
+                           f"block composition by {diff}")
+    _phase("stokes_monolithic", n=nc, shape=list(mono.shape), nnz=mono.nnz,
+           max_abs_diff=diff, velocity_rate=rate, card=card)
+
+
+def stokes_large_phase(dev, card):
+    """The manufactured problem at n = 128 and 256: errors, rate, the time
+    split, the assembly's device-busy share (torch.profiler, device
+    activity only, over cut + quadrature, forms and the host CSR) and the
+    peak device memory."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from cutfemx_tpu_torch.demos import demo_stokes
+    outs = []
+    for n in N_STOKES_LARGE:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            P = demo_stokes.problem(n, device=dev)
+            A = demo_stokes.matrices(P)
+            torch.cuda.synchronize()
+        assembly_ms = (time.perf_counter() - t0) * 1e3
+        out = demo_stokes.solve(P, A)
+        total = time.perf_counter() - t0
+        busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA) / 1e3
+        if not busy_ms > 0:
+            raise RuntimeError("the profiler saw no device time in the "
+                               "Stokes assembly")
+        if not np.all(np.isfinite([out["err_u"], out["err_p"]])):
+            raise RuntimeError(f"stokes n={n}: non-finite errors")
+        inactive = P["domain"].inactive_dofs.size
+        out = dict(n=n, **out, **P["counts"],
+                   active_dofs=P["counts"]["dofs"] - int(inactive),
+                   **P["times"], total_s=total, assembly_ms=assembly_ms,
+                   assembly_device_busy_ms=busy_ms,
+                   assembly_device_busy_share=busy_ms / assembly_ms,
+                   peak_device_bytes=torch.cuda.max_memory_allocated(),
+                   host_stages=["classify", "assemble_matrix CSR",
+                                "deactivate_outside", "pin",
+                                "direct_solve"])
+        outs.append(out)
+        _phase("stokes_large", **out, card=card)
+    c, f = outs
+    rate = float(np.log2(c["err_u"] / f["err_u"]))
+    if not rate > STOKES_RATE_MIN:
+        raise RuntimeError(f"stokes large: velocity rate {rate}")
+    _phase("stokes_rate", n_coarse=c["n"], n_fine=f["n"], err_u_rate=rate,
+           err_p_rate=float(np.log2(c["err_p"] / f["err_p"])), card=card)
+
+
+def stokes_cylinder_phase(dev, card):
+    """The cylinder demo at the reference's n = 24 against its JAX-CPU
+    numbers, then at n = 64."""
+    from cutfemx_tpu_torch.demos import demo_stokes
+    out = demo_stokes.run(24, device=dev)
+    rel = {k: _rel(out[k], v) for k, v in JAX_CPU_CYLINDER_N24.items()}
+    if not max(rel.values()) < PINNED_RTOL:
+        raise RuntimeError(f"cylinder n=24: {rel} relative to JAX-CPU")
+    _phase("stokes_cylinder", **out, jax_cpu=JAX_CPU_CYLINDER_N24,
+           rel_to_jax_cpu=rel, card=card)
+    out = demo_stokes.run(N_CYLINDER, device=dev)
+    nums = [out[k] for k in ("flux_in", "flux_out", "u_gamma", "max_u")]
+    if not (np.all(np.isfinite(nums))
+            and out["mass_defect"] < CYLINDER_MASS_DEFECT):
+        raise RuntimeError(f"cylinder n={N_CYLINDER}: {out}")
+    _phase("stokes_cylinder", **out, card=card)
+
+
+def newton_problem(which, n, dev):
+    """tests/test_nonlinear.py's residual F(u; v), its boundary conditions
+    and the zero initial guess, on the card in f64."""
+    import torch
+    import cutfemx_tpu_torch as ct
+    from cutfemx_tpu_torch import fem
+    from cutfemx_tpu_torch.forms import dsl as d
+    from cutfemx_tpu_torch.forms.measure import Measure
+    f64 = torch.float64
+    if which == "fitted":
+        mesh = ct.mesh.create_unit_square(n)
+        V = ct.functionspace(mesh, ("Lagrange", 1), device=dev)
+        u = ct.Function(V, name="u", dtype=f64)
+        v = d.TestFunction(V)
+        x = d.SpatialCoordinate(mesh)
+        uc = d.CoefficientExpr(u)
+        u_ex = x[0] * (1 - x[0]) * x[1] * (1 - x[1])
+        dx = Measure("dx", domain=mesh)
+        F = d.inner((1.0 + uc * uc) * d.grad(uc), d.grad(v)) * dx
+        F -= d.inner((1.0 + u_ex * u_ex) * d.grad(u_ex), d.grad(v)) * dx
+        c = V.dof_coordinates
+        onb = ((np.abs(c[:, 0]) < 1e-12) | (np.abs(c[:, 0] - 1) < 1e-12)
+               | (np.abs(c[:, 1]) < 1e-12) | (np.abs(c[:, 1] - 1) < 1e-12))
+        bcs = [fem.dirichletbc(0.0, np.flatnonzero(onb), V)]
+    else:
+        r, gamma = 0.6, 40.0
+        mesh = ct.mesh.create_rectangle((-1, -1), (1, 1), (n, n))
+        phi = ct.Function(ct.functionspace(mesh, ("Lagrange", 1), device=dev),
+                          name="phi", dtype=f64)
+        phi.interpolate(lambda X: np.sqrt(X[0] ** 2 + X[1] ** 2) - r)
+        cd = ct.cut(phi)
+        dxo = Measure("dx", domain=mesh, subdomain_data=[
+            ct.locate_entities(cd, "phi<0"),
+            ct.runtime_quadrature(cd, "phi<0", 2)])
+        dxg = Measure("dx", domain=mesh,
+                      subdomain_data=ct.runtime_quadrature(cd, "phi=0", 2))
+        V = ct.functionspace(mesh, ("Lagrange", 1), device=dev)
+        u = ct.Function(V, name="u", dtype=f64)
+        v = d.TestFunction(V)
+        x = d.SpatialCoordinate(mesh)
+        ng, h = ct.normal(phi), d.CellDiameter(mesh)
+        uc = d.CoefficientExpr(u)
+        u_ex = d.sin(d.pi * x[0]) * d.sin(d.pi * x[1])
+        f = 2 * d.pi ** 2 * u_ex + u_ex ** 3
+        F = d.inner(d.grad(uc), d.grad(v)) * dxo + (uc ** 3 - f) * v * dxo
+        F += (-d.dot(d.grad(uc), ng) * v - d.dot(d.grad(v), ng) * (uc - u_ex)
+              + gamma / h * (uc - u_ex) * v) * dxg
+        probe = fem.form(d.inner(d.grad(ct.ufl.TrialFunction(V)),
+                                 d.grad(v)) * dxo)
+        bcs = [fem.dirichletbc(0.0, fem.active_domain(probe).inactive_dofs,
+                               V)]
+    return u, F, bcs
+
+
+def newton_phase(dev, card):
+    """newton_solve on both problems of tests/test_nonlinear.py, then
+    la.bicgstab with Jacobi on the flower's element-batched CutOperator."""
+    import torch
+    from cutfemx_tpu_torch import fem, la
+    from cutfemx_tpu_torch.demos import demo_poisson
+    for which, (n, its_ref, tol) in JAX_CPU_NEWTON.items():
+        u, F, bcs = newton_problem(which, n, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u, its, hist = fem.newton_solve(F, u, bcs=bcs, tol=tol)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if not (its == its_ref and hist[-1] < tol
+                and u.x.device == torch.device(dev)
+                and bool(torch.isfinite(u.x).all())):
+            raise RuntimeError(f"newton {which}: {its} iterations (JAX-CPU "
+                               f"{its_ref}), |F| {hist}")
+        _phase("newton", problem=which, n=n, dofs=u.function_space.dim,
+               iterations=its, jax_cpu_iterations=its_ref, history=hist,
+               tol=tol, seconds=seconds,
+               host_stages=["assemble_matrix CSR + bcs", "direct_solve"],
+               card=card)
+    P = demo_poisson.problem(N_BICGSTAB, device=dev)
+    op = demo_poisson.operator(P)
+    d = op.diagonal()
+    bb = torch.where(op.active, P["b"], 0.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, its, res = la.bicgstab(op, bb, M=lambda r: r / d,
+                              rtol=demo_poisson.CG_RTOL,
+                              maxiter=BICGSTAB_MAXITER)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    r = torch.where(op.active, bb - op(x), 0.0)
+    true_rel = float(torch.linalg.norm(r) / torch.linalg.norm(bb))
+    if not (its < BICGSTAB_MAXITER and true_rel <= FLOWER_TRUE_RESIDUAL):
+        raise RuntimeError(f"bicgstab: {its} iterations, true relative "
+                           f"residual {true_rel}")
+    _phase("bicgstab", n=N_BICGSTAB, dofs=op.dim, precond="jacobi",
+           iterations=its, residual_norm=float(res), rtol=demo_poisson.CG_RTOL,
+           true_rel_residual=true_rel, seconds=seconds,
+           l2_error=demo_poisson.l2_error(P, x), card=card)
+
+
 def main():
     import argparse
     import torch
@@ -1001,6 +1245,17 @@ def main():
     interface_phase(dev, smi)
     moving_heat_phase(dev, smi)
     _phase("2d_done", seconds=time.perf_counter() - t0,
+           k1_launches=ist.launches - before,
+           total_seconds=time.perf_counter() - t_all)
+
+    # cut Stokes (config 4) and the nonlinear solvers: no K1 either
+    t0 = time.perf_counter()
+    before = ist.launches
+    stokes_parity_phase(dev, smi)
+    stokes_large_phase(dev, smi)
+    stokes_cylinder_phase(dev, smi)
+    newton_phase(dev, smi)
+    _phase("stokes_done", seconds=time.perf_counter() - t0,
            k1_launches=ist.launches - before,
            total_seconds=time.perf_counter() - t_all)
 

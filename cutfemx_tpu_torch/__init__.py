@@ -21,9 +21,14 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
+import sys as _sys  # noqa: E402
+
 from . import mesh  # noqa: E402,F401
 from .functionspace import (  # noqa: E402,F401
     Function, FunctionSpace, functionspace)
+from .forms import dsl as ufl  # noqa: E402,F401  (UFL-like namespace)
+
+_sys.modules[__name__ + ".ufl"] = ufl  # `from cutfemx_tpu_torch.ufl import`
 
 # The public `cut(...)` entry point shadows the `cut` subpackage attribute,
 # as in cutfemx_tpu: the function wins at package level.

@@ -1,4 +1,4 @@
-"""The port's counterparts of the reference's 2D cut-Poisson demos.
+"""The port's counterparts of the reference's 2D demos.
 
 Each module has the reference script's parameters and a ``run(...)`` that
 returns the errors and the solve information instead of printing them:
@@ -8,7 +8,10 @@ returns the errors and the solve information instead of printing them:
 - ``demo_interface_poisson``: two-domain Poisson on a circular interface
   (config 3), block assembly and a block direct solve;
 - ``demo_moving_heat``: backward-Euler heat on a translating disk (config
-  5), re-cut, re-assembly and a direct solve per step.
+  5), re-cut, re-assembly and a direct solve per step;
+- ``demo_stokes``: cut Stokes (config 4), the flow around a cylinder with
+  strong inflow and wall conditions (``run``) and a manufactured problem
+  through block or monolithic mixed forms (``run_manufactured``).
 
 ``run`` works on the CUDA card unless called with ``device="cpu"``.
 Run one as ``python -m cutfemx_tpu_torch.demos.demo_poisson --n 32``.

@@ -1,16 +1,20 @@
 """Runtime form assembly, dof deactivation and matrix-free operators.
 
-The torch counterpart of ``cutfemx_tpu.fem``'s cut-Poisson surface:
-``form``/``CutForm`` (rank 0, 1 and 2, per-block forms of a mixed space,
-``dx``, ``ds`` and ``dS`` integrals) with its bucket padding,
-``extract_blocks``, ``assemble_scalar/vector/matrix``, ``active_domain``,
-``deactivate_outside``, ``zero_rows`` and their block variants, and the
-element-batched ``CutOperator``. The compiled kernels come from
-``forms.compile``; this module decides which entities each integral runs
-over (standard vs runtime quadrature) and performs the global scatter.
+The torch counterpart of ``cutfemx_tpu.fem``: ``form``/``CutForm`` (rank
+0, 1 and 2, per-block forms of a mixed space, ``dx``, ``ds`` and ``dS``
+integrals) with its bucket padding, the monolithic ``MixedCutForm``,
+``extract_blocks``, ``assemble_scalar/vector/matrix`` and their block
+variants, strong Dirichlet conditions (``dirichletbc``, ``locate_dofs_*``,
+``set_bc``, ``apply_lifting``), the sparsity helpers, ``active_domain``,
+``deactivate_outside``, ``zero_rows`` and their block variants,
+``derivative``/``newton_solve``, and the element-batched ``CutOperator``.
+The compiled kernels come from ``forms.compile``; this module decides which
+entities each integral runs over (standard vs runtime quadrature) and
+performs the global scatter.
 
 Element data is computed on the device of the form; ``assemble_matrix``
-builds its CSR matrix on the host with SciPy, as the reference does.
+builds its CSR matrix on the host with SciPy, as the reference does, and
+the boundary-condition elimination and the direct solves run there too.
 Every device scatter is a segment sum over row-sorted contributions
 (``segment_sum_sorted``), so it sums in the same order on every run; CUDA's
 ``index_add_`` would sum with atomics in a varying order.
@@ -28,11 +32,16 @@ from .forms.dsl import extract_arguments
 from .forms.measure import FormExpr, split_subdomain_data
 from .la import MatrixCSR
 
-__all__ = ["CutForm", "form", "extract_blocks",
+__all__ = ["CutForm", "form", "MixedCutForm", "extract_blocks",
            "assemble_scalar", "assemble_vector", "assemble_matrix",
-           "ActiveDomain", "active_domain", "deactivate_outside",
-           "deactivate_outside_blocks", "zero_rows", "zero_block_rows",
-           "block_offsets", "CutOperator", "segment_sum_sorted"]
+           "assemble_matrix_block", "assemble_vector_block",
+           "DirichletBC", "dirichletbc", "locate_dofs_geometrical",
+           "locate_dofs_topological", "set_bc", "apply_lifting",
+           "create_sparsity_pattern", "insert_diagonal", "create_matrix",
+           "ActiveDomain", "MixedActiveDomain", "active_domain",
+           "deactivate_outside", "deactivate_outside_blocks", "zero_rows",
+           "zero_block_rows", "block_offsets", "derivative",
+           "newton_solve", "CutOperator", "segment_sum_sorted"]
 
 
 def segment_sum_sorted(vals, lengths):
@@ -367,21 +376,228 @@ class CutForm:
         return g.reshape(g.shape[0], -1)
 
 
+class DirichletBC:
+    """Strong Dirichlet condition: blocked dofs of ``V`` and their
+    prescribed values, both host numpy (the elimination runs on the host
+    CSR matrix). ``value`` is a Function of ``V``, a ConstantExpr or
+    constant, a scalar, one value per dof, or one value per component of
+    a ``bs``-vector space."""
+
+    def __init__(self, value, dofs, V):
+        from .forms.dsl import ConstantExpr
+        from .functionspace import Function
+        self.function_space = V
+        self.dofs = np.asarray(dofs, dtype=np.int64).ravel()
+        if isinstance(value, Function):
+            self.values = value.x.detach().cpu().numpy()[self.dofs]
+            return
+        if isinstance(value, ConstantExpr):
+            value = value.value
+        if isinstance(value, torch.Tensor):
+            value = value.detach().cpu().numpy()
+        v = np.asarray(value, dtype=float)
+        if v.ndim == 0:
+            self.values = np.full(len(self.dofs), float(v))
+        elif v.shape == self.dofs.shape:
+            self.values = v
+        elif v.size == V.bs:
+            self.values = v.ravel()[self.dofs % V.bs]
+        else:
+            raise ValueError("cannot broadcast bc value")
+
+
+def dirichletbc(value, dofs, V):
+    return DirichletBC(value, dofs, V)
+
+
+def _blocked(V, scalar_dofs):
+    """Blocked dofs of every component of the given scalar dofs."""
+    scalar_dofs = np.asarray(scalar_dofs, np.int64)
+    if V.bs == 1:
+        return scalar_dofs
+    return (scalar_dofs[:, None] * V.bs + np.arange(V.bs)).ravel()
+
+
+def locate_dofs_geometrical(V, marker):
+    """Blocked dofs whose coordinates satisfy ``marker(x)``, x of shape
+    (gdim, N)."""
+    hits = np.flatnonzero(np.asarray(marker(V.dof_coordinates.T)))
+    return _blocked(V, hits)
+
+
+def locate_dofs_topological(V, dim, entities):
+    """Blocked dofs on the closure of the given facets or cells."""
+    from .cut.classify import entity_closure_dofs
+    return _blocked(V, np.unique(
+        entity_closure_dofs(V, dim, entities).ravel()))
+
+
+def set_bc(b, bcs, scale=1.0):
+    """b[bc dofs] = scale * g. A numpy ``b`` is written in place; a tensor
+    (on any device) comes back as a new one."""
+    if isinstance(b, np.ndarray):
+        for bc in bcs:
+            b[bc.dofs] = scale * bc.values
+        return b
+    for bc in bcs:
+        b = b.index_put(
+            (torch.as_tensor(bc.dofs, device=b.device),),
+            torch.as_tensor(scale * bc.values, dtype=b.dtype,
+                            device=b.device))
+    return b
+
+
+def apply_lifting(b, a_forms, bcs_lists, scale=1.0):
+    """b - scale * A g for each (form, bcs) pair, g the values of the bcs
+    on the form's trial space (others are skipped, as assemble_matrix
+    skips them). The matrices are assembled (host CSR) and the product
+    taken on the host; the result comes back as ``b`` came: a new numpy
+    array, or a tensor of ``b``'s dtype on ``b``'s device."""
+    is_tensor = isinstance(b, torch.Tensor)
+    out = np.array(b.detach().cpu().numpy() if is_tensor else b)
+    for a, bcs in zip(a_forms, bcs_lists):
+        U = a.trial_space
+        bcs = [bc for bc in bcs if bc.function_space is U]
+        if not bcs:
+            continue
+        g = np.zeros(U.dim)
+        for bc in bcs:
+            g[bc.dofs] = bc.values
+        out -= scale * (assemble_matrix(a).to_scipy() @ g)
+    if is_tensor:
+        return torch.as_tensor(out, dtype=b.dtype, device=b.device)
+    return out
+
+
 def form(form_expr, dtype=None, device="cuda"):
     """Compile a form expression. ``device`` is used only by a form whose
     data names no device (no argument, coefficient or runtime rule). A
     mixed-space form (arguments from TrialFunctions/TestFunctions of a
-    MixedFunctionSpace) is split with ``extract_blocks``; its monolithic
-    MixedCutForm waits for ROADMAP item 8 (Stokes)."""
+    MixedFunctionSpace) compiles into a MixedCutForm, whose assembly gives
+    the block-composed matrix and vector."""
     if not isinstance(form_expr, FormExpr):
         raise TypeError("form() expects expr * measure (a FormExpr)")
-    for itg in form_expr.integrals:
-        if any(part is not None
-               for _, part in extract_arguments(itg.integrand)):
-            raise NotImplementedError(
-                "monolithic mixed-space forms, MixedCutForm (ROADMAP item "
-                "8: Stokes); split the form with fem.extract_blocks")
+    if any(part is not None for _, part in _arguments(form_expr)):
+        return MixedCutForm(form_expr, dtype=dtype, device=device)
     return CutForm(form_expr, dtype=dtype, device=device)
+
+
+def _arguments(form_expr):
+    """{(number, part): Argument} over every integral of a form."""
+    keys = {}
+    for itg in form_expr.integrals:
+        keys.update(extract_arguments(itg.integrand))
+    return keys
+
+
+class MixedCutForm:
+    """Monolithic view of a mixed-space form: block CutForms plus the
+    concatenated dof layout [part0 | part1 | ...]. Every block lives on
+    one device (``self.device``) in one dtype."""
+
+    def __init__(self, form_expr, dtype=None, device="cuda"):
+        keys = _arguments(form_expr)
+        if any(part is None for (_, part) in keys):
+            raise ValueError(
+                "mixed forms must build every argument from a "
+                "MixedFunctionSpace (no part-less arguments)")
+        self.rank = len({num for (num, _) in keys})
+
+        def layout(num):
+            args = [a for k, a in keys.items() if k[0] == num]
+            if not args:
+                return []
+            W = next((a.mixed for a in args if a.mixed is not None), None)
+            if W is not None:
+                return list(W.spaces)
+            parts = sorted(k[1] for k in keys if k[0] == num)
+            return [keys[(num, p)].space for p in parts]
+
+        self.test_spaces = layout(0)
+        self.trial_spaces = layout(1) if self.rank == 2 else []
+
+        def make(block):
+            f = CutForm(form_expr, dtype=dtype, block=block, device=device)
+            return f if f.instances else None
+
+        nt = len(self.test_spaces)
+        if self.rank == 1:
+            self.blocks = tuple(
+                make((i, None)) if (0, i) in keys else None
+                for i in range(nt))
+        else:
+            nu = len(self.trial_spaces)
+            self.blocks = tuple(tuple(
+                make((i, j)) if ((0, i) in keys and (1, j) in keys)
+                else None for j in range(nu)) for i in range(nt))
+        self.test_offsets = block_offsets(self.test_spaces).astype(np.int64)
+        self.trial_offsets = block_offsets(self.trial_spaces).astype(
+            np.int64) if self.rank == 2 else None
+        present = [b for b in _flat(self.blocks) if b is not None]
+        if not present:
+            raise ValueError("mixed form has no block with integrals")
+        devices = {b.device for b in present}
+        if len(devices) > 1:
+            raise ValueError(f"mixed form blocks on several devices: "
+                             f"{devices}")
+        self.dtype = present[0].dtype
+        self.mesh = present[0].mesh
+        self.device = present[0].device
+
+    @property
+    def dim(self):
+        return int(self.test_offsets[-1])
+
+
+def _flat(blocks):
+    for b in blocks:
+        if isinstance(b, tuple):
+            yield from _flat(b)
+        else:
+            yield b
+
+
+def derivative(residual_expr, u, du=None):
+    """Gateaux derivative of a residual form F(u; v) with respect to the
+    Function ``u`` in direction ``du`` (a TrialFunction of u's space by
+    default): u -> u + du, so the AD kernel's argument Jacobian at zero
+    trial coefficients is the exact Newton Jacobian at u's current
+    state."""
+    from .forms.dsl import CoefficientExpr, Sum, TrialFunction, replace
+    from .forms.measure import Integral
+    if du is None:
+        du = TrialFunction(u.function_space)
+    cexpr = CoefficientExpr(u)
+    return FormExpr([Integral(replace(itg.integrand,
+                                      {cexpr: Sum(CoefficientExpr(u), du)}),
+                              itg.measure)
+                     for itg in residual_expr.integrals])
+
+
+def newton_solve(residual_expr, u, bcs=None, tol=1e-10, max_iter=20,
+                 report=False):
+    """Newton's method on a nonlinear residual form F(u; v) = 0 with the
+    AD-exact Jacobian, in u's dtype. Residual and Jacobian are assembled on
+    u's device; the Jacobian's CSR matrix, its boundary conditions and the
+    direct solve run on the host. ``u.x`` is updated in place and stays a
+    tensor on its device. Returns (u, iterations, |F| history)."""
+    from .la import direct_solve
+    bc_dofs = np.concatenate([bc.dofs for bc in bcs]) if bcs else None
+    hist = []
+    for it in range(max_iter):
+        b = assemble_vector(form(residual_expr, dtype=u.x.dtype))
+        if bcs:
+            b = _zero_entries(b, bc_dofs)
+        norm = float(torch.linalg.norm(b))
+        hist.append(norm)
+        if report:
+            print(f"newton it {it}: |F| = {norm:.3e}")
+        if norm < tol:
+            break
+        A = assemble_matrix(form(derivative(residual_expr, u),
+                                 dtype=u.x.dtype), bcs=bcs)
+        u.x = u.x - direct_solve(A, b)
+    return u, len(hist), hist
 
 
 def extract_blocks(form_expr, dtype=None):
@@ -389,9 +605,7 @@ def extract_blocks(form_expr, dtype=None):
     ufl.extract_blocks). Returns a nested tuple for rank-2 forms, a flat
     tuple for rank-1 forms; entries are None when a block has no
     contribution."""
-    keys = {}
-    for itg in form_expr.integrals:
-        keys.update(extract_arguments(itg.integrand))
+    keys = _arguments(form_expr)
     test_parts = sorted({p for (num, p) in keys if num == 0},
                         key=lambda p: -1 if p is None else p)
     trial_parts = sorted({p for (num, p) in keys if num == 1},
@@ -421,6 +635,16 @@ def assemble_scalar(f: CutForm):
 
 
 def assemble_vector(f):
+    """The vector of a rank-1 form on the form's device: one segment sum
+    over row-sorted element contributions. A MixedCutForm gives the
+    concatenation of its parts (zeros where a part has no integral)."""
+    if isinstance(f, MixedCutForm):
+        if f.rank != 1:
+            raise ValueError("assemble_vector requires a rank-1 form")
+        return torch.cat([
+            assemble_vector(b) if b is not None
+            else torch.zeros(sp.dim, dtype=f.dtype, device=f.device)
+            for b, sp in zip(f.blocks, f.test_spaces)])
     if f.rank != 1:
         raise ValueError("assemble_vector requires a rank-1 form")
     V = f.test_space
@@ -436,19 +660,32 @@ def assemble_vector(f):
     return segment_sum_sorted(torch.cat(parts)[perm], lengths)
 
 
-def assemble_matrix(f: CutForm, bcs=None, extension_terms=None):
+def assemble_matrix(f, bcs=None, extension_terms=None):
     """Assemble a rank-2 form into a host CSR matrix (the oracle and
     direct-solve path; the device path is CutOperator). The element
     matrices are computed on the form's device; the COO -> CSR step runs
-    on the host with SciPy, as in the reference."""
-    if bcs:
-        raise NotImplementedError(
-            "assemble_matrix(bcs=...): lifting and strong boundary "
-            "conditions (ROADMAP item 9)")
+    on the host with SciPy, as in the reference. A MixedCutForm gives the
+    block-composed matrix.
+
+    With ``bcs``, the rows of the dofs constrained on the test space and
+    the columns of those constrained on the trial space are zeroed on the
+    CSR data, and a form whose test and trial space are one space gets a
+    unit diagonal there (pair with apply_lifting + set_bc). A condition on
+    another space (by identity) leaves the form alone, as in DOLFINx, so
+    one list of conditions serves every block of a mixed system."""
     if extension_terms:
         raise NotImplementedError(
             "assemble_matrix(extension_terms=...): aggregation extensions "
             "(ROADMAP item 10)")
+    if isinstance(f, MixedCutForm):
+        if bcs:
+            raise NotImplementedError(
+                "bcs with monolithic mixed forms: apply them per block via "
+                "extract_blocks")
+        if f.rank != 2:
+            raise ValueError("assemble_matrix requires a rank-2 form")
+        return assemble_matrix_block(
+            f.blocks, f.test_spaces, f.trial_spaces)
     if f.rank != 2:
         raise ValueError("assemble_matrix requires a rank-2 form")
     V, U = f.test_space, f.trial_space
@@ -464,10 +701,136 @@ def assemble_matrix(f: CutForm, bcs=None, extension_terms=None):
         cols_all.append(np.broadcast_to(c[:, None, :], (E, nv, nu)).ravel())
         vals_all.append(Ae.ravel())
     if not rows_all:
-        return MatrixCSR.from_coo([], [], [], (V.dim, U.dim))
-    return MatrixCSR.from_coo(np.concatenate(rows_all),
-                              np.concatenate(cols_all),
-                              np.concatenate(vals_all), (V.dim, U.dim))
+        A = MatrixCSR.from_coo([], [], [], (V.dim, U.dim))
+    else:
+        A = MatrixCSR.from_coo(np.concatenate(rows_all),
+                               np.concatenate(cols_all),
+                               np.concatenate(vals_all), (V.dim, U.dim))
+    if bcs:
+        _eliminate_bcs(A, bcs, V, U)
+    return A
+
+
+def _eliminate_bcs(A, bcs, V, U):
+    """Zero the rows of the bcs on V and the columns of those on U (on the
+    CSR data: a lil fancy assignment would materialise dense blocks), then
+    a unit diagonal on the constrained rows when V is U."""
+    import scipy.sparse as sps
+
+    def dofs_on(space):
+        d = [bc.dofs for bc in bcs if bc.function_space is space]
+        return np.unique(np.concatenate(d)) if d else np.zeros(0, np.int64)
+
+    rows, cols = dofs_on(V), dofs_on(U)
+    if rows.size == 0 and cols.size == 0:
+        return
+    m = A.to_scipy().tocsr()
+    sel_r = np.zeros(m.shape[0], bool)
+    sel_r[rows] = True
+    sel_c = np.zeros(m.shape[1], bool)
+    sel_c[cols] = True
+    row_ids = np.repeat(np.arange(m.shape[0]), np.diff(m.indptr))
+    m.data[sel_r[row_ids] | sel_c[m.indices]] = 0.0
+    m.eliminate_zeros()
+    if V is U:
+        m = (m + sps.coo_matrix((np.ones(len(rows)), (rows, rows)),
+                                shape=m.shape)).tocsr()
+    A._m = m
+
+
+def assemble_matrix_block(a_blocks, spaces=None, trial_spaces=None):
+    """One monolithic host CSR matrix from a nested block layout whose
+    entries are CutForms, MatrixCSRs or None (the role of the reference's
+    PETSc nest-matrix path). ``spaces`` gives the block rows' spaces (and
+    the columns', unless ``trial_spaces`` does) where a whole row is
+    None."""
+    import scipy.sparse as sps
+    if spaces is None:
+        spaces = [next(blk.test_space for blk in row if blk is not None)
+                  for row in a_blocks]
+    dims = [sp.dim for sp in spaces]
+    cdims = [sp.dim for sp in trial_spaces] if trial_spaces else dims
+    grid = []
+    for i, row in enumerate(a_blocks):
+        out_row = []
+        for j, blk in enumerate(row):
+            if blk is None:
+                out_row.append(sps.csr_matrix((dims[i], cdims[j])))
+            elif isinstance(blk, MatrixCSR):
+                out_row.append(blk.to_scipy().tocsr())
+            else:
+                out_row.append(assemble_matrix(blk).to_scipy().tocsr())
+        grid.append(out_row)
+    return MatrixCSR(sps.bmat(grid, format="csr"))
+
+
+def assemble_vector_block(L_blocks, spaces):
+    """The concatenated vector of rank-1 blocks (None -> zeros), a tensor
+    on the forms' device."""
+    present = [blk for blk in L_blocks if blk is not None]
+    dtype = present[0].dtype if present else torch.get_default_dtype()
+    device = present[0].device if present else spaces[0].device
+    return torch.cat([
+        assemble_vector(blk) if blk is not None
+        else torch.zeros(sp.dim, dtype=dtype, device=device)
+        for blk, sp in zip(L_blocks, spaces)])
+
+
+def create_sparsity_pattern(f: CutForm, extension_terms=None):
+    """Sparsity of a rank-2 form as a SciPy CSR structure matrix (int8
+    ones) with the deactivation diagonal included."""
+    if extension_terms:
+        raise NotImplementedError(
+            "create_sparsity_pattern(extension_terms=...): aggregation "
+            "extensions (ROADMAP item 10)")
+    if f.rank != 2:
+        raise ValueError("create_sparsity_pattern requires a rank-2 form")
+    import scipy.sparse as sps
+    V, U = f.test_space, f.trial_space
+    rows, cols = [], []
+    for inst in f.instances:
+        r = f._entity_dofs(V, inst)
+        c = f._entity_dofs(U, inst)
+        E, nv = r.shape
+        nu = c.shape[1]
+        rows.append(np.broadcast_to(r[:, :, None], (E, nv, nu)).ravel())
+        cols.append(np.broadcast_to(c[:, None, :], (E, nv, nu)).ravel())
+    if V.dim == U.dim:
+        diag = np.arange(V.dim)
+        rows.append(diag)
+        cols.append(diag)
+    data = np.ones(sum(len(r) for r in rows), np.int8)
+    m = sps.coo_matrix((data, (np.concatenate(rows),
+                               np.concatenate(cols))),
+                       shape=(V.dim, U.dim)).tocsr()
+    m.data[:] = 1
+    return m
+
+
+def insert_diagonal(A: MatrixCSR, rows, value=1.0):
+    """Set ``value`` on the diagonal of the given rows, on the CSR data:
+    the rows' stored diagonal entries are zeroed, then a COO diagonal is
+    added."""
+    import scipy.sparse as sps
+    rows = np.asarray(rows, dtype=np.int64)
+    if rows.size == 0:
+        return A
+    m = A.to_scipy().tocsr()
+    mask = np.zeros(m.shape[0], dtype=bool)
+    mask[rows] = True
+    coo = m.tocoo()
+    m.data[mask[coo.row] & (coo.row == coo.col)] = 0.0
+    add = sps.coo_matrix((np.full(rows.size, value, dtype=m.dtype),
+                          (rows, rows)), shape=m.shape)
+    A._m = (m + add.tocsr()).tocsr()
+    return A
+
+
+def create_matrix(f: CutForm):
+    """A zero host CSR matrix of the form's shape (the sparsity is
+    implicit in the COO assembly)."""
+    import scipy.sparse as sps
+    return MatrixCSR(sps.csr_matrix((f.test_space.dim, f.trial_space.dim)))
 
 
 def block_offsets(spaces):
@@ -493,9 +856,47 @@ class ActiveDomain:
         return m
 
 
+@dataclass
+class MixedActiveDomain:
+    """Per-part active domains with monolithic offsets."""
+    domains: list
+    offsets: np.ndarray
+
+    @property
+    def inactive_dofs(self):
+        return np.concatenate([
+            d.inactive_dofs + off
+            for d, off in zip(self.domains, self.offsets[:-1])])
+
+    @property
+    def active_mask(self):
+        return np.concatenate([d.active_mask for d in self.domains])
+
+    def sub(self, i):
+        return self.domains[i]
+
+
 def active_domain(f, space=None):
     """Collect cells from all integral domains and mark dofs untouched by
-    any of them as inactive."""
+    any of them as inactive. A MixedCutForm gives a MixedActiveDomain: each
+    part's domain from its diagonal block (else the first block of its
+    row), with monolithic offsets."""
+    if isinstance(f, MixedCutForm):
+        doms = []
+        rows = f.blocks if f.rank == 2 else [(b,) for b in f.blocks]
+        for i, row in enumerate(rows):
+            if f.rank == 2 and i < len(row) and row[i] is not None:
+                blk = row[i]
+            else:
+                blk = next((b for b in row if b is not None), None)
+            sp = f.test_spaces[i]
+            if blk is None:
+                doms.append(ActiveDomain(
+                    sp, np.zeros(0, np.int32),
+                    np.arange(sp.dim, dtype=np.int32)))
+            else:
+                doms.append(active_domain(blk, space=sp))
+        return MixedActiveDomain(doms, f.test_offsets)
     V = space or f.test_space or f.trial_space
     if V is None:
         raise ValueError("active_domain requires a form with arguments")
@@ -520,9 +921,10 @@ def _zero_entries(b, rows):
     return b.index_fill(0, idx, 0.0)
 
 
-def deactivate_outside(A, b, domain: ActiveDomain, diag=1.0):
+def deactivate_outside(A, b, domain, diag=1.0):
     """Unit-diagonal the inactive rows of a host CSR matrix and zero the
-    right-hand side there. Returns (A, b)."""
+    right-hand side there (an ActiveDomain, or a MixedActiveDomain for the
+    monolithic system). Returns (A, b)."""
     rows = domain.inactive_dofs
     if isinstance(A, MatrixCSR):
         A.zero_rows(rows, diag=diag)

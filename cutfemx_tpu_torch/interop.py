@@ -113,7 +113,9 @@ def operator_from_reference(arrays, device, dtype):
 
 def function_from_reference(V, x):
     """A port Function on space V holding the reference's dof values ``x``
-    (a numpy copy of a cutfemx_tpu Function's ``.x``)."""
+    (a numpy copy of a cutfemx_tpu Function's ``.x``: for a vector-valued
+    space the blocked layout, dof * bs + component, which both packages
+    share)."""
     x = np.asarray(x)
     if x.shape != (V.dim,):
         raise ValueError(f"expected {V.dim} dof values, got {x.shape}")
@@ -124,7 +126,8 @@ def function_from_reference(V, x):
 
 def matrix_from_reference(A):
     """The port's MatrixCSR holding a copy of ``A``: a reference
-    ``cutfemx_tpu.la.MatrixCSR`` (anything with ``to_scipy()``) or a SciPy
+    ``cutfemx_tpu.la.MatrixCSR`` (anything with ``to_scipy()``: a form's
+    matrix, a block's, or a MixedCutForm's monolithic one) or a SciPy
     sparse matrix."""
     import scipy.sparse as sps
     m = A.to_scipy() if hasattr(A, "to_scipy") else A

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 __all__ = ["MatrixCSR", "direct_solve", "cg_init", "cg_resume", "cg",
-           "power_iteration_lmax", "chebyshev_preconditioner"]
+           "bicgstab", "power_iteration_lmax", "chebyshev_preconditioner"]
 
 
 class MatrixCSR:
@@ -143,6 +143,39 @@ def cg(operator, b, x0=None, M=None, rtol=1e-10, atol=0.0, maxiter=1000):
     state, bb = cg_init(operator, b, x0=x0, M=M)
     tol2 = torch.clamp(rtol * torch.sqrt(bb), min=atol) ** 2
     x, r, p, rz, it = cg_resume(operator, state, M, tol2, maxiter)
+    return x, it, torch.linalg.norm(r)
+
+
+def bicgstab(operator, b, x0=None, M=None, rtol=1e-10, maxiter=1000):
+    """BiCGStab for nonsymmetric operators: the reference's recurrence and
+    stopping test (||r||^2 <= (rtol ||b||)^2, read on the host before every
+    iteration). M: callable r -> M^{-1} r. Returns (x, iterations,
+    residual_norm)."""
+    x = torch.zeros_like(b) if x0 is None else x0
+    if M is None:
+        def M(r):
+            return r
+    r = b - operator(x)
+    rhat = r
+    rho = alpha = omega = torch.ones((), dtype=b.dtype, device=b.device)
+    v = p = torch.zeros_like(b)
+    tol2 = (rtol * torch.linalg.norm(b)) ** 2
+    it = 0
+    while it < maxiter and bool(torch.dot(r, r) > tol2):
+        rho_new = torch.dot(rhat, r)
+        beta = (rho_new / rho) * (alpha / omega)
+        p = r + beta * (p - omega * v)
+        phat = M(p)
+        v = operator(phat)
+        alpha = rho_new / torch.dot(rhat, v)
+        s = r - alpha * v
+        shat = M(s)
+        t = operator(shat)
+        omega = torch.dot(t, s) / torch.dot(t, t)
+        x = x + alpha * phat + omega * shat
+        r = s - omega * t
+        rho = rho_new
+        it += 1
     return x, it, torch.linalg.norm(r)
 
 

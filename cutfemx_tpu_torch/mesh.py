@@ -230,6 +230,22 @@ class Mesh:
             self._cache["hmax"] = np.sqrt(h2, out=h2)
         return self._cache["hmax"]
 
+    def midpoints(self, dim=None, entities=None):
+        """Midpoints of cells (default) or given entities of dimension dim."""
+        if dim is None or dim == self.tdim:
+            pts = self.cell_vertex_coords.mean(axis=1)
+        elif dim == self.tdim - 1:
+            pts = self.vertices[self.facets].mean(axis=1)
+        elif dim == 1:
+            pts = self.vertices[self.edges].mean(axis=1)
+        elif dim == 0:
+            pts = self.vertices
+        else:
+            raise ValueError(dim)
+        if entities is not None:
+            pts = pts[np.asarray(entities)]
+        return pts
+
 
 # -- structured lattice topology ----------------------------------------------
 #

@@ -193,9 +193,16 @@ def test_demo_poisson_reaches_the_pinned_l2_error():
 
 
 def test_unported_options_raise(port):
+    """bcs= works (rows and columns of the constrained dofs zeroed, a unit
+    diagonal); extension terms, runtime ds rules and bcs on a monolithic
+    mixed form still raise."""
     fem, d = ct.fem, port["d"]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        fem.assemble_matrix(port["af"], bcs=[object()])
+    dofs = fem.locate_dofs_geometrical(port["V"],
+                                       lambda x: np.isclose(x[0], -1.0))
+    A = fem.assemble_matrix(port["af"], bcs=[fem.dirichletbc(
+        0.0, dofs, port["V"])]).to_scipy()
+    assert np.array_equal(A[dofs].toarray(), np.eye(A.shape[0])[dofs])
+    assert np.array_equal(A[:, dofs].toarray(), np.eye(A.shape[0])[:, dofs])
     with pytest.raises(NotImplementedError, match="item 10"):
         fem.assemble_matrix(port["af"], extension_terms=[object()])
     from cutfemx_tpu_torch.forms.measure import Measure
@@ -206,5 +213,8 @@ def test_unported_options_raise(port):
     W = d.MixedFunctionSpace(port["V"], port["V"])
     u1, u2 = d.TrialFunctions(W)
     v1, v2 = d.TestFunctions(W)
-    with pytest.raises(NotImplementedError, match="MixedCutForm"):
-        fem.form(u1 * v1 * port["dxo"] + u2 * v2 * port["dxo"])
+    mixed = fem.form(u1 * v1 * port["dxo"] + u2 * v2 * port["dxo"],
+                     dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="per block"):
+        fem.assemble_matrix(mixed, bcs=[fem.dirichletbc(0.0, dofs,
+                                                        port["V"])])

@@ -220,13 +220,22 @@ def test_demo_interface_poisson_converges():
 
 
 def test_mixed_forms_need_extract_blocks(port):
+    """fem.form of a mixed expression is a MixedCutForm (its matrix the
+    block composition); a plain CutForm of it still refuses."""
     d = port["d"]
     V1, V2 = port["V"]
     W = d.MixedFunctionSpace(V1, V2)
     u1, _ = d.TrialFunctions(W)
     v1, _ = d.TestFunctions(W)
     expr = u1 * v1 * port["dx"][0]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ct.fem.form(expr)
+    mixed = ct.fem.form(expr, dtype=torch.float64)
+    assert isinstance(mixed, ct.fem.MixedCutForm)
+    assert mixed.test_spaces == [V1, V2] and mixed.dim == V1.dim + V2.dim
+    assert mixed.blocks[0][1] is None and mixed.blocks[1][1] is None
+    A = ct.fem.assemble_matrix(mixed).to_scipy()
+    A11 = ct.fem.assemble_matrix(ct.fem.extract_blocks(
+        expr, dtype=torch.float64)[0][0]).to_scipy()
+    assert abs(A[:V1.dim, :V1.dim] - A11).max() == 0.0
+    assert A[V1.dim:].nnz == 0 and A[:, V1.dim:].nnz == 0
     with pytest.raises(ValueError, match="extract_blocks"):
         ct.fem.CutForm(expr)
