@@ -7,7 +7,8 @@
 Phases, each printing one line of numbers:
 
 1. device: the card's name, and ``nvidia-smi``'s name and power limit;
-2. build: compiles the hand-written kernels from ``cutfemx_tpu_torch/csrc``;
+2. build: compiles the hand-written kernels from ``cutfemx_tpu_torch/csrc``
+   and the host geometry library (g++);
 3. kernel: each kernel against its plain PyTorch version on the card, f32
    and f64, at three shapes (nch = 8, L = 27): the slice's grid n = 48 with
    its own mask (4,512 full cubes), the same grid at a 50% random mask, and
@@ -68,10 +69,30 @@ Phases, each printing one line of numbers:
 15. newton: both problems of tests/test_nonlinear.py by newton_solve (the
     reference's iteration counts, |F| under its tolerance), and
     la.bicgstab with Jacobi on the flower's n = 256 element-batched
-    CutOperator (true relative residual <= 1e-9).
+    CutOperator (true relative residual <= 1e-9);
+16. distance_parity: the geometry path (f64) against the JAX-CPU values
+    (1e-10 absolute, equal FIM sweeps and negative counts): the sphere STL
+    of demo_stl_distance (1,728 triangles) on the n = 16 box by from_stl
+    in the three sign modes, the 2D point source of tests/test_distance.py
+    (n = 40) and demo_reinit (n = 48);
+17. distance_large: the n = 96 box (912,673 vertices, 5,308,416 tets,
+    21.2 M FIM update entries) and a 27,648-triangle sphere: from_stl's
+    stages (read + distribute, cell-triangle map, near field, FIM, sign)
+    in each sign mode, reinitialize of |x|^2 - 1/4, one profiled FIM
+    solve, the FIM sweep and the clustered winding sum as stage rows
+    against their bounds, peak device memory; the gates of
+    tests/test_distance.py;
+18. extension: extend_normal_velocity off a circle at n = 512 (constant
+    and varying speed, tests/test_distance.py's gates) and into P2 at
+    n = 128;
+19. shape_opt: demo_compliance_optimization at its defaults (n = 32, 10
+    iterations) from the reference's initial design against the JAX-CPU
+    history (iteration 0 within 1e-10 relative, all within 1e-6), the
+    same run from the port's own design beside it, then n = 128 timed by
+    stage and a profiled 2-iteration run (device-busy share).
 The 2D phases print which stages ran on the host (classification, the
 CSR matrices, the boundary conditions and the direct solves: host code by
-the reference's design).
+the reference's design). K1 must show 0 launches on the geometry path.
 
 ``--profile`` adds one pass of the slice and one of the stack under
 ``torch.profiler`` (device busy and idle share, K1's device time, the top
@@ -157,6 +178,99 @@ CYLINDER_MASS_DEFECT = 1e-2
 # on a CPU (tests/test_torch_newton.py's newton_problem, PERF.md section 4)
 JAX_CPU_NEWTON = {"fitted": (12, 4, 1e-12), "disk": (24, 4, 1e-11)}
 N_BICGSTAB, BICGSTAB_MAXITER = 256, 20_000
+
+
+# The geometry path (distance/, refine.py, optimization.py and their demos),
+# all f64. The JAX reference's (cutfemx_tpu, x64, on a CPU) numbers come
+# from tests/test_torch_distance.py's reference_distance_parity and
+# tests/test_torch_optimization.py's reference_compliance (PERF.md section
+# 4 gives the command); a field is held by its value_summary: the sum, sum
+# of squares, min, max, nine samples at evenly spaced indices and the
+# count of negative values.
+DISTANCE_MODES = ("component_anchor", "local_normal_band", "winding_number")
+DISTANCE_ABS_TOL = 1e-10
+N_SPHERE_PARITY, N_POINT_SOURCE, N_REINIT_DEMO = 16, 40, 48
+JAX_CPU_DISTANCE = {
+    "sphere": {
+        "component_anchor":
+            dict(sweeps=15, n_values=4913, sum=2652.4129781764177,
+                 sumsq=1883.3652346073868, min=-0.4318140962942925,
+                 max=1.2882900986919439, negative=251,
+                 samples=[1.2320508165429929, 0.7990381146507737,
+                          0.3660254127585544, -0.066757486825208,
+                          -0.4318140962942925, -0.06690535076799398,
+                          0.3660254127585544, 0.7990381146507737,
+                          1.2320508165429929]),
+        "local_normal_band":
+            dict(sweeps=15, n_values=4913, sum=2652.4129781764177,
+                 sumsq=1883.3652346073868, min=-0.4318140962942925,
+                 max=1.2882900986919439, negative=251,
+                 samples=[1.2320508165429929, 0.7990381146507737,
+                          0.3660254127585544, -0.066757486825208,
+                          -0.4318140962942925, -0.06690535076799398,
+                          0.3660254127585544, 0.7990381146507737,
+                          1.2320508165429929]),
+        "winding_number":
+            dict(sweeps=15, n_values=4913, sum=2652.4129781764177,
+                 sumsq=1883.3652346073868, min=-0.4318140962942925,
+                 max=1.2882900986919439, negative=251,
+                 samples=[1.2320508165429929, 0.7990381146507737,
+                          0.3660254127585544, -0.066757486825208,
+                          -0.4318140962942925, -0.06690535076799398,
+                          0.3660254127585544, 0.7990381146507737,
+                          1.2320508165429929]),
+    },
+    "point_source":
+        dict(sweeps=39, n_values=1681, sum=1338.262741615797,
+             sumsq=1212.6391639906287, min=0.0, max=1.452144977259558,
+             negative=0,
+             samples=[1.414213562373095, 1.0606601717798212,
+                      0.7071067811865476, 0.3535533905932738, 0.0,
+                      0.3535533905932738, 0.7071067811865476,
+                      1.0606601717798214, 1.4142135623730954]),
+    "reinit":
+        dict(n_values=2401, sum=683.4253218018441, sumsq=398.88737551689906,
+             min=-0.47170262767661764, max=0.9295811352156887, negative=437,
+             samples=[0.9150793638884732, 0.5615259732951995,
+                      0.2079725827019257, -0.14555216467747845,
+                      -0.47170262767661764, -0.14555216467747845,
+                      0.2079725827019257, 0.5615259732951995,
+                      0.9150793638884731]),
+}
+N_DISTANCE_LARGE, SPHERE_LARGE_PER_FACE = 96, 48   # 27,648 triangles
+FAR_BAND, LARGE_MAX_ERROR, REINIT_BAND, REINIT_BAND_ERROR = \
+    0.15, 0.12, 0.1, 0.01           # tests/test_distance.py:74-104
+N_EXTENSION, N_EXTENSION_P2 = 512, 128
+N_SHAPE_OPT, SHAPE_OPT_ITERS = 32, 10
+N_SHAPE_OPT_LARGE, SHAPE_OPT_LARGE_ITERS = 128, 10
+SHAPE_OPT_RTOL_FIRST, SHAPE_OPT_RTOL = 1e-10, 1e-6
+# the reference's initial design of the n = 32 run (its reinitialized
+# level set and ALM scale), written by reference_compliance
+COMPLIANCE_INITIAL = os.path.join("tests", "data",
+                                  "compliance_n32_initial.npz")
+JAX_CPU_COMPLIANCE_N32 = [  # compliance, volume, Lagrangian, dt
+    [0.018220607825567094, 1.6663829240997472,
+     0.03556615414736857, 0.007572772508225546],
+    [0.01957679228131357, 1.6095866908598753,
+     0.02186142413756617, 0.006687557346389277],
+    [0.01982917223073797, 1.5999672731450838,
+     0.019821322090299333, 0.006687557346389277],
+    [0.020238483446611957, 1.583483693755563,
+     0.016843940781475848, 0.013375114692778554],
+    [0.020252260072340482, 1.5825376622730665,
+     0.0171228694287463, 0.013375114692778554],
+    [0.01972147701051675, 1.5999189840576464,
+     0.019708036743662737, 0.013375114692778554],
+    [0.0197213109651489, 1.5998489423370825,
+     0.019696296312583156, 0.013375114692778554],
+    [0.019717332669653247, 1.59939671773804,
+     0.019618275973764886, 0.013375114692778554],
+    [0.01967722570608345, 1.600000940923785,
+     0.01967737870723023, 0.013375114692778554],
+    [0.019668912214151547, 1.5993932068606092,
+     0.019571270313532223, 0.013375114692778554],
+]
+F64_FLOPS_PER_S = 34e12             # H100 SXM published FP64 (non-tensor)
 
 
 def _phase(phase, **numbers):
@@ -1166,6 +1280,416 @@ def newton_phase(dev, card):
            l2_error=demo_poisson.l2_error(P, x), card=card)
 
 
+# -- the geometry path -----------------------------------------------------
+
+
+def value_summary(vals):
+    """A field as the JAX-CPU constants hold it (the same function as
+    tests/test_torch_distance.py's)."""
+    vals = np.asarray(vals, np.float64)
+    idx = np.linspace(0, len(vals) - 1, 9).astype(int)
+    return dict(n_values=len(vals), sum=float(vals.sum()),
+                sumsq=float((vals ** 2).sum()), min=float(vals.min()),
+                max=float(vals.max()), samples=[float(v) for v in vals[idx]],
+                negative=int((vals < 0).sum()))
+
+
+def _hold_field(what, vals, want, tol=DISTANCE_ABS_TOL):
+    """Raise unless a field matches the JAX-CPU summary: every sample, the
+    min and the max within ``tol``, the sum within n * tol, the sum of
+    squares within 2 n max|v| tol, the same count of negative values (and
+    of FIM sweeps where given). Returns the largest sample error."""
+    got = value_summary(vals)
+    n = want["n_values"]
+    if got["n_values"] != n or got["negative"] != want["negative"]:
+        raise RuntimeError(f"{what}: {got['n_values']} values, "
+                           f"{got['negative']} negative; JAX-CPU {n}, "
+                           f"{want['negative']}")
+    pts = np.asarray(got["samples"] + [got["min"], got["max"]])
+    ref = np.asarray(want["samples"] + [want["min"], want["max"]])
+    err = float(np.abs(pts - ref).max())
+    vmax = max(abs(want["min"]), abs(want["max"]))
+    if not (err <= tol and abs(got["sum"] - want["sum"]) <= n * tol
+            and abs(got["sumsq"] - want["sumsq"]) <= 2 * n * vmax * tol):
+        raise RuntimeError(f"{what}: off the JAX-CPU values by {err} "
+                           f"(sum {got['sum']} vs {want['sum']})")
+    return err
+
+
+def _sphere_mesh(ct, n):
+    return ct.mesh.create_box((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0),
+                              (n, n, n))
+
+
+def distance_parity_phase(ct, dev, card):
+    """The sphere STL of demo_stl_distance (1,728 triangles) on the n = 16
+    box in each sign mode (compute_signed_distance, and from_stl the same),
+    the 2D point source of tests/test_distance.py (n = 40) and demo_reinit
+    (n = 48), against the JAX-CPU values: 1e-10 absolute, equal sweeps and
+    negative counts."""
+    import tempfile
+    import torch
+    from cutfemx_tpu_torch import distance
+    from cutfemx_tpu_torch.demos import demo_reinit, demo_stl_distance
+    ref = JAX_CPU_DISTANCE
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sphere.stl")
+        demo_stl_distance._make_sphere_stl(path)
+        mesh = _sphere_mesh(ct, N_SPHERE_PARITY)
+        soup = distance.read_stl(path)
+        ctmap = distance.build_cell_triangle_map(mesh, soup)
+        for mode in DISTANCE_MODES:
+            d, its = distance.compute_signed_distance(
+                mesh, soup, ctmap, sign_mode=mode, device=dev)
+            f = distance.from_stl(mesh, path, sign_mode=mode, device=dev,
+                                  log_timings=False)
+            if f.x.device.type != torch.device(dev).type \
+                    or f.x.dtype != torch.float64 \
+                    or not np.array_equal(f.x.cpu().numpy(), d):
+                raise RuntimeError(f"from_stl ({mode}) differs from "
+                                   "compute_signed_distance")
+            want = ref["sphere"][mode]
+            if its != want["sweeps"]:
+                raise RuntimeError(f"sphere {mode}: {its} FIM sweeps, "
+                                   f"JAX-CPU {want['sweeps']}")
+            err = _hold_field(f"sphere {mode}", d, want)
+            _phase("distance_parity", case="sphere_stl", mode=mode,
+                   n=N_SPHERE_PARITY, triangles=soup.num_triangles,
+                   sweeps=its, negative=int((d < 0).sum()),
+                   max_abs_err=err, card=card)
+    m2 = ct.mesh.create_rectangle((-1, -1), (1, 1),
+                                  (N_POINT_SOURCE, N_POINT_SOURCE))
+    r = np.linalg.norm(m2.vertices, axis=1)
+    frozen = r < 0.15
+    d, _, its = distance.eikonal_solve(
+        m2, np.where(frozen, r, distance.FMMOptions().inf), frozen,
+        device=dev)
+    if its != ref["point_source"]["sweeps"]:
+        raise RuntimeError(f"point source: {its} sweeps")
+    err = _hold_field("point source", d.cpu().numpy(), ref["point_source"])
+    _phase("distance_parity", case="point_source", n=N_POINT_SOURCE,
+           sweeps=its, max_abs_err=err, card=card)
+    out = demo_reinit.run(N_REINIT_DEMO, device=dev)
+    err = _hold_field("demo_reinit", out["values"], ref["reinit"])
+    if not (out["max_error"] < 0.06 and out["band_max_error"] < 0.01):
+        raise RuntimeError(f"demo_reinit: errors {out['max_error']}, "
+                           f"{out['band_max_error']}")
+    _phase("distance_parity", case="demo_reinit", n=N_REINIT_DEMO,
+           max_abs_err=err, negative=out["negative_vertices"],
+           max_error=out["max_error"], band_max_error=out["band_max_error"],
+           seconds=out["seconds"], card=card)
+
+
+def _fim_sweep_bytes(mesh):
+    """Bytes one FIM sweep must move without payload: d and the frozen
+    mask read and d written per vertex; per update entry its vertex and
+    its d known vertices (int64), d edge lengths and the inverse Gram
+    matrices of every planar sub-simplex (f64), each read once."""
+    d = mesh.tdim
+    M = mesh.num_cells * len(mesh.ref_cell.simplex_split) * (d + 1)
+    from itertools import combinations
+    gram = sum(len(s) ** 2 for k in range(2, d + 1)
+               for s in combinations(range(d), k))
+    return M, M * 8 * ((d + 1) + d + gram) + mesh.num_vertices * 17
+
+
+def _fim_sweep_flops(mesh):
+    """Floating-point operations of one sweep's candidates: a one-point
+    update per known vertex (d adds and compares) and a planar update per
+    sub-simplex of k vertices (the three quadratic forms, the root and
+    the causality weights: 3 k^2 + k^2 + ~12)."""
+    d = mesh.tdim
+    M = mesh.num_cells * len(mesh.ref_cell.simplex_split) * (d + 1)
+    from itertools import combinations
+    per = 2 * d + sum(4 * len(s) ** 2 + 12 for k in range(2, d + 1)
+                      for s in combinations(range(d), k))
+    return M * per
+
+
+def distance_large_phase(ct, dev, card):
+    """from_stl's stages at n = 96 (912,673 vertices, 5,308,416 tets) for
+    a 27,648-triangle sphere in each sign mode, reinitialize of |x|^2 -
+    1/4, one profiled FIM solve (device-busy share), the FIM sweep and the
+    winding sum as stage rows, and peak device memory. Gates of
+    tests/test_distance.py: the sign of |x| - 1/2 where ||x| - 1/2| >
+    0.15, the error against it below 0.12, the reinitialized field's
+    below 0.01 in the band ||x| - 1/2| < 0.1."""
+    import tempfile
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from cutfemx_tpu_torch import distance
+    from cutfemx_tpu_torch.demos import demo_stl_distance
+    from cutfemx_tpu_torch.demos import stage_clock
+    from cutfemx_tpu_torch.distance import api, winding
+    clock = stage_clock(dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = clock()
+    mesh = _sphere_mesh(ct, N_DISTANCE_LARGE)
+    exact = np.linalg.norm(mesh.vertices, axis=1) - 0.5
+    far = np.abs(exact) > FAR_BAND
+    M, sweep_bytes = _fim_sweep_bytes(mesh)
+    _phase("distance_large_setup", n=N_DISTANCE_LARGE,
+           vertices=mesh.num_vertices, cells=mesh.num_cells,
+           update_entries=M, seconds=clock() - t0)
+    fields = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sphere.stl")
+        demo_stl_distance._make_sphere_stl(path, n=SPHERE_LARGE_PER_FACE)
+        for mode in DISTANCE_MODES:
+            t = [clock()]
+            soup = distance.distribute_stl(mesh, path)
+            t.append(clock())
+            ctmap = distance.build_cell_triangle_map(mesh, soup)
+            t.append(clock())
+            d0, frozen, closest, nrm = api._near_field(mesh, soup, ctmap,
+                                                       dev)
+            t.append(clock())
+            d, _, its = distance.eikonal_solve(mesh, d0, frozen,
+                                               device=dev)
+            d = d.cpu().numpy()
+            t.append(clock())
+            if mode == "component_anchor":
+                sign = api._sign_component_anchor(mesh, soup, ctmap, d,
+                                                  closest, nrm, frozen)
+            elif mode == "local_normal_band":
+                sign = api._sign_local_normal_band(mesh, d, closest, nrm,
+                                                   frozen, dev)
+            else:
+                sign = api._sign_winding_number(mesh, soup, dev)
+            t.append(clock())
+            vals = sign * d
+            err = float(np.abs(vals - exact).max())
+            wrong = int((np.sign(vals[far]) != np.sign(exact[far])).sum())
+            if wrong or not err < LARGE_MAX_ERROR:
+                raise RuntimeError(f"distance_large {mode}: {wrong} wrong "
+                                   f"signs, max error {err}")
+            s = np.diff(t)
+            _phase("distance_large", mode=mode, n=N_DISTANCE_LARGE,
+                   triangles=soup.num_triangles,
+                   candidate_pairs=int(ctmap.offsets[-1]),
+                   frozen_vertices=int(frozen.sum()), sweeps=its,
+                   read_distribute_s=s[0], cell_triangle_map_s=s[1],
+                   near_field_s=s[2], fim_s=s[3],
+                   fim_ms_per_sweep=s[3] * 1e3 / its, sign_s=s[4],
+                   total_s=float(t[-1] - t[0]), max_error=err,
+                   negative=int((vals < 0).sum()), card=card)
+            fields[mode] = vals
+        # from_stl itself gives the split's field
+        f = distance.from_stl(mesh, path, device=dev, log_timings=False)
+        if not np.array_equal(f.x.cpu().numpy(), fields[DISTANCE_MODES[0]]):
+            raise RuntimeError("from_stl differs from its stages at "
+                               f"n = {N_DISTANCE_LARGE}")
+        clusters = winding.build_winding_clusters(soup)
+    # the winding sum alone, as a stage
+    pts = torch.as_tensor(mesh.vertices, device=dev)
+    reach2 = torch.as_tensor((2.0 * clusters.radius) ** 2, device=dev)
+    cen = torch.as_tensor(clusters.centroid, device=dev)
+    near_pairs = 0
+    for i in range(0, pts.shape[0], 1 << 14):
+        dd = ((pts[i:i + (1 << 14), None, :] - cen[None]) ** 2).sum(-1)
+        near_pairs += int((dd <= reach2[None]).sum())
+    wt = _device_times(lambda: winding.winding_numbers(
+        mesh.vertices, clusters, device=dev), 2)
+    P, C, K = mesh.num_vertices, clusters.n_clusters, clusters.K
+    w_bytes = P * 3 * 8 + C * K * 9 * 8 + C * 7 * 8 + P * 8
+    w_flops = P * C * 12 + near_pairs * K * 40
+    w_bound = max(w_bytes / HBM_BYTES_PER_S, w_flops / F64_FLOPS_PER_S) * 1e3
+    _phase("stage", stage="winding_numbers", n=N_DISTANCE_LARGE, points=P,
+           clusters=C, near_cluster_pairs=near_pairs,
+           device_ms_per_call=min(wt), calls=1, bytes=w_bytes,
+           flops=w_flops, bound_ms=w_bound,
+           bound_by="operations" if w_flops / F64_FLOPS_PER_S
+           > w_bytes / HBM_BYTES_PER_S else "bytes", card=card)
+    # reinitialize of the P1 field |x|^2 - 1/4
+    V = ct.functionspace(mesh, ("Lagrange", 1), device=dev)
+    phi = ct.Function(V, dtype=torch.float64)
+    phi.interpolate(lambda x: x[0] ** 2 + x[1] ** 2 + x[2] ** 2 - 0.25)
+    t0 = clock()
+    out = distance.reinitialize(phi).x.cpu().numpy()
+    reinit_s = clock() - t0
+    band = np.abs(exact) < REINIT_BAND
+    band_err = float(np.abs(out - exact)[band].max())
+    if not band_err < REINIT_BAND_ERROR:
+        raise RuntimeError(f"reinitialize n={N_DISTANCE_LARGE}: band "
+                           f"error {band_err}")
+    # one FIM solve profiled, and its sweep as a stage
+    inf = distance.FMMOptions().inf
+    d0 = np.where(np.abs(exact) < 0.03, np.abs(exact), inf)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, _, its = distance.eikonal_solve(mesh, d0, d0 < inf, device=dev)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    if not busy_ms > 0:
+        raise RuntimeError("the profiler saw no device time in the FIM")
+    ms = _device_times(lambda: distance.eikonal_solve(
+        mesh, d0, d0 < inf, device=dev), 1)[0]
+    flops = _fim_sweep_flops(mesh)
+    bound = max(sweep_bytes / HBM_BYTES_PER_S,
+                flops / F64_FLOPS_PER_S) * 1e3
+    _phase("distance_large_reinit", n=N_DISTANCE_LARGE, seconds=reinit_s,
+           band_max_error=band_err,
+           max_error=float(np.abs(out - exact).max()),
+           fim_profiled_wall_ms=wall_ms, fim_device_busy_ms=busy_ms,
+           fim_device_busy_share=busy_ms / wall_ms,
+           peak_device_bytes=torch.cuda.max_memory_allocated(), card=card)
+    _phase("stage", stage="fim_sweep", n=N_DISTANCE_LARGE,
+           update_entries=M, sweeps=its, device_ms_per_call=ms / its,
+           calls=its, solve_ms=ms, bytes=sweep_bytes, flops=flops,
+           bound_ms=bound, bound_by="bytes" if sweep_bytes /
+           HBM_BYTES_PER_S > flops / F64_FLOPS_PER_S else "operations",
+           share=bound / (ms / its), card=card)
+
+
+def extension_phase(ct, dev, card):
+    """extend_normal_velocity off the circle r = 1/2 at n = 512 with the
+    constant (2.5) and the varying (x/|x|) speed of tests/test_distance.py
+    and their gates, then target_space=P2 at n = 128 (unit speed)."""
+    import torch
+    from cutfemx_tpu_torch import distance
+    from cutfemx_tpu_torch.demos import stage_clock
+    clock = stage_clock(dev)
+
+    def setup(n):
+        mesh = ct.mesh.create_rectangle((-1, -1), (1, 1), (n, n))
+        V = ct.functionspace(mesh, ("Lagrange", 1), device=dev)
+        phi = ct.Function(V, dtype=torch.float64)
+        phi.interpolate(lambda x: np.sqrt(x[0] ** 2 + x[1] ** 2) - 0.5)
+        return mesh, V, phi
+
+    mesh, V, phi = setup(N_EXTENSION)
+    rad = np.linalg.norm(mesh.vertices, axis=1)
+    for case, fn in (("constant", lambda x: np.full(x.shape[1], 2.5)),
+                     ("varying", lambda x: x[0] / np.maximum(
+                         np.sqrt(x[0] ** 2 + x[1] ** 2), 1e-12))):
+        speed = ct.Function(V, dtype=torch.float64)
+        speed.interpolate(fn)
+        t0 = clock()
+        res = distance.extend_normal_velocity(phi, speed)
+        seconds = clock() - t0
+        sv = res.speed.x.cpu().numpy()
+        vel = res.velocity.x.cpu().numpy().reshape(-1, 2)
+        if case == "constant":
+            far = rad > 0.2
+            vmag = np.linalg.norm(vel, axis=1)
+            align = np.einsum("ij,ij->i", vel / np.maximum(
+                vmag[:, None], 1e-12), mesh.vertices / np.maximum(
+                rad[:, None], 1e-12))
+            err = float(np.abs(sv - 2.5).max())
+            ok = err < 1e-6 and np.abs(vmag[far] - 2.5).max() < 1e-5 \
+                and (align[far] > 0.95).all()
+        else:
+            sel = (rad > 0.25) & (rad < 0.9)
+            err = float(np.abs(sv - mesh.vertices[:, 0] / np.maximum(
+                rad, 1e-12))[sel].max())
+            ok = err < 0.12
+        if not ok:
+            raise RuntimeError(f"extension {case}: speed error {err}")
+        _phase("extension", case=case, n=N_EXTENSION,
+               vertices=mesh.num_vertices, speed_error=err,
+               seconds=seconds, card=card)
+    mesh, V, phi = setup(N_EXTENSION_P2)
+    speed = ct.Function(V, dtype=torch.float64)
+    speed.interpolate(lambda x: 1.0 + 0.0 * x[0])
+    V2 = ct.functionspace(mesh, ("Lagrange", 2), device=dev)
+    t0 = clock()
+    res = distance.extend_normal_velocity(phi, speed, target_space=V2)
+    seconds = clock() - t0
+    s = res.speed.x.cpu().numpy()
+    mag = np.linalg.norm(res.velocity.x.cpu().numpy().reshape(-1, 2),
+                         axis=1)
+    if not (res.speed.function_space is V2 and np.abs(s - 1.0).max() < 0.05
+            and abs(np.median(mag) - 1.0) < 0.05):
+        raise RuntimeError("extension target_space=P2 fails its gates")
+    _phase("extension", case="target_p2", n=N_EXTENSION_P2, dofs=V2.dim,
+           speed_error=float(np.abs(s - 1.0).max()), seconds=seconds,
+           card=card)
+
+
+def _history(res):
+    return [[h[k] for k in ("compliance", "volume", "lagrangian", "dt")]
+            for h in res["history"]]
+
+
+def shape_opt_phase(ct, dev, card):
+    """demo_compliance_optimization at its defaults (n = 32, 10 L-BFGS
+    iterations, SUPG, reinitialization every 3) from the reference's
+    initial design (a checkpoint) against the JAX-CPU history: iteration 0
+    within 1e-10 relative, every iteration within 1e-6. The same run from
+    the port's own initial design is reported beside it. Then n = 128
+    (65,536 triangles) timed by stage, and a 2-iteration run under
+    torch.profiler for the device-busy share."""
+    import shutil
+    import tempfile
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from cutfemx_tpu_torch.demos import demo_compliance_optimization as demo
+    here = os.path.dirname(os.path.abspath(__file__))
+    want = np.asarray(JAX_CPU_COMPLIANCE_N32)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "initial.npz")
+        shutil.copy(os.path.join(here, COMPLIANCE_INITIAL), ck)
+        t0 = time.perf_counter()
+        res = demo.run(["--checkpoint", ck, "--resume"], n=N_SHAPE_OPT,
+                       iters=SHAPE_OPT_ITERS, quiet=True, device=dev)
+        seconds = time.perf_counter() - t0
+    got = np.asarray(_history(res))
+    rel = np.abs(got - want) / np.abs(want)
+    if got.shape != want.shape or not (
+            rel[0].max() <= SHAPE_OPT_RTOL_FIRST
+            and rel.max() <= SHAPE_OPT_RTOL):
+        raise RuntimeError(f"shape_opt n={N_SHAPE_OPT}: history off the "
+                           f"JAX-CPU run by {rel.max(axis=1).tolist()}")
+    t0 = time.perf_counter()
+    own = np.asarray(_history(demo.run(n=N_SHAPE_OPT, iters=SHAPE_OPT_ITERS,
+                                       quiet=True, device=dev)))
+    own_s = time.perf_counter() - t0
+    own_rel = (np.abs(own - want) / np.abs(want)).max(axis=1)
+    _phase("shape_opt", n=N_SHAPE_OPT, iterations=len(got),
+           max_rel_err_by_iteration=rel.max(axis=1).tolist(),
+           final=dict(zip(("compliance", "volume", "lagrangian", "dt"),
+                          got[-1].tolist())), seconds=seconds,
+           own_design_max_rel_err_by_iteration=own_rel.tolist(),
+           own_design_seconds=own_s, card=card)
+    t0 = time.perf_counter()
+    res = demo.run(n=N_SHAPE_OPT_LARGE, iters=SHAPE_OPT_LARGE_ITERS,
+                   quiet=True, device=dev)
+    seconds = time.perf_counter() - t0
+    hist = np.asarray(_history(res))
+    if not np.isfinite(hist).all():
+        raise RuntimeError(f"shape_opt n={N_SHAPE_OPT_LARGE}: non-finite "
+                           "history")
+    split = {k: sum(r.get(f"time_{k}", 0.0) for r in res["profile"])
+             for k in ("state_solve", "gradient", "extension", "advect",
+                       "reinit", "line_search", "total")}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        demo.run(n=N_SHAPE_OPT_LARGE, iters=2, quiet=True, device=dev)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    if not busy_ms > 0:
+        raise RuntimeError("the profiler saw no device time in shape_opt")
+    _phase("shape_opt", n=N_SHAPE_OPT_LARGE,
+           triangles=4 * N_SHAPE_OPT_LARGE ** 2,
+           iterations=len(hist), seconds=seconds,
+           stage_s=split, state_solves=sum(r["state_solves"]
+                                           for r in res["profile"]),
+           first=hist[0].tolist(), final=hist[-1].tolist(),
+           profiled_iterations=2, profiled_wall_ms=wall_ms,
+           device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
+           host_stages=["classify", "assemble_matrix CSR", "spsolve",
+                        "Riesz factorization", "cell-triangle map"],
+           card=card)
+
+
 def main():
     import argparse
     import torch
@@ -1198,9 +1722,14 @@ def main():
            nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
     from cutfemx_tpu_torch import interior_stencil as ist
+    from cutfemx_tpu_torch import native
     t0 = time.perf_counter()
     ist.build()
     _phase("build", kernel="interior_stencil",
+           seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    native.build()
+    _phase("build", library="geometry_kernels",
            seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
@@ -1257,6 +1786,22 @@ def main():
     newton_phase(dev, smi)
     _phase("stokes_done", seconds=time.perf_counter() - t0,
            k1_launches=ist.launches - before,
+           total_seconds=time.perf_counter() - t_all)
+
+    # the geometry path: signed distance, reinitialization, extension and
+    # the shape-optimization loop; no K1 on it
+    t0 = time.perf_counter()
+    before = ist.launches
+    distance_parity_phase(ct, dev, smi)
+    distance_large_phase(ct, dev, smi)
+    extension_phase(ct, dev, smi)
+    shape_opt_phase(ct, dev, smi)
+    geometry_k1 = ist.launches - before
+    if geometry_k1:
+        raise RuntimeError(f"the geometry path launched K1 {geometry_k1} "
+                           "times")
+    _phase("geometry_done", seconds=time.perf_counter() - t0,
+           k1_launches=geometry_k1,
            total_seconds=time.perf_counter() - t_all)
 
     # the main path's shape: the slice's grid and mask in f32, the CG's type

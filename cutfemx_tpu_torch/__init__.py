@@ -41,11 +41,14 @@ runtime_quadrature = _cut_api.runtime_quadrature
 ghost_penalty_facets = _cut_api.ghost_penalty_facets
 interior_facets_for_cells = _cut_api.interior_facets_for_cells
 CutData = _cut_api.CutData
+CutMesh = _cut_api.CutMesh
+create_cut_mesh = _cut_api.create_cut_mesh
 
 __version__ = "0.1.0"
 
 _LAZY_MODULES = ("fem", "la", "level_set", "stencil", "interior_stencil",
-                 "interop", "demos")
+                 "interop", "demos", "distance", "native", "optimization",
+                 "refine")
 _LEVELSET_API = ("normal",)
 
 

@@ -1,9 +1,12 @@
 """Public cut API: cut, update, locate_entities, runtime_quadrature,
-ghost_penalty_facets — the torch counterpart of ``cutfemx_tpu.cut.api``.
+ghost_penalty_facets, create_cut_mesh — the torch counterpart of
+``cutfemx_tpu.cut.api``.
 
-Classification and facet bands are host numpy; runtime quadrature runs on
-the level set's device. Only the linear marching path (a P1 level set on
-cell-hosted CutData) is ported; the rest waits for ROADMAP item 10.
+Classification and facet bands are host numpy; runtime quadrature and the
+cut-mesh marching run on the level set's device. Only the linear marching
+path (a P1 level set on cell-hosted CutData; cut meshes also march the
+vertex values of a higher-degree one) is ported; the rest waits for
+ROADMAP item 10.
 """
 
 from __future__ import annotations
@@ -11,16 +14,21 @@ from __future__ import annotations
 from collections.abc import Sequence
 
 import numpy as np
+import torch
 
 from ..functionspace import Function
 from ..mesh import Mesh
 from .classify import CutData
-from .quadrature import RuntimeQuadratureRules, interface_rules, volume_rules
-from .selector import DOMAIN_INTERSECTED, parse_selector
+from .quadrature import (RuntimeQuadratureRules, _march_parts,
+                         interface_rules, volume_rules)
+from .selector import (DOMAIN_INSIDE, DOMAIN_INTERSECTED, DOMAIN_OUTSIDE,
+                       parse_selector)
+from .tables import simplex_cut_tables
 
 __all__ = [
     "cut", "update", "locate_entities", "runtime_quadrature", "CutData",
-    "ghost_penalty_facets", "interior_facets_for_cells",
+    "ghost_penalty_facets", "interior_facets_for_cells", "CutMesh",
+    "create_cut_mesh",
 ]
 
 
@@ -134,3 +142,100 @@ def ghost_penalty_facets(cut_data: CutData, selector: str, *, depth=1,
     both_active = interior & active[fc[:, 0]] & active[c1]
     any_cut = is_cut[fc[:, 0]] | is_cut[c1]
     return np.flatnonzero(both_active & any_cut).astype(np.int32)
+
+
+# -- cut visualisation meshes ------------------------------------------------
+
+
+class CutMesh:
+    """Simplex mesh of a selected cut part: ``mesh`` (None when the part
+    is empty), the parent cell of each of its cells and whether that cell
+    is a cut fragment (1) or a whole uncut cell (0)."""
+
+    def __init__(self, mesh, parent_index, is_cut_cell):
+        self.mesh = mesh
+        self.parent_index = np.asarray(parent_index, dtype=np.int32)
+        self.is_cut_cell = np.asarray(is_cut_cell, dtype=np.int8)
+
+
+_SIMPLEX_OF_DIM = {1: "interval", 2: "triangle", 3: "tetrahedron"}
+
+
+def create_cut_mesh(cut_data: CutData, ls_part: str, mode=None) -> CutMesh:
+    """Build a simplex mesh of the selected part of cell-hosted CutData.
+    mode: 'full' includes the uncut cells of the phase, 'cut_only' only
+    the cut fragments; 'auto' is 'full' for volume parts and 'cut_only'
+    for interfaces. The fragments are marched in physical coordinates on
+    the level set's device from its values at the cell vertices."""
+    mode = mode or "auto"
+    terms = parse_selector(ls_part)
+    if len(terms) != 1 or len(terms[0]) != 1:
+        raise NotImplementedError(
+            "compound and union selectors (ROADMAP item 10)")
+    name, op = terms[0][0]
+    idx = cut_data.level_set_names.index(name)
+    phi = cut_data.level_sets[idx]
+    mesh = cut_data.mesh
+    tdim = mesh.tdim
+    if op == "=" and mode == "full":
+        raise ValueError(
+            "mode='full' is not valid for interface parts ('=' selector)")
+    if cut_data.hosted_dim != tdim:
+        raise NotImplementedError(
+            "facet-hosted cut meshes (ROADMAP item 10)")
+    if mode == "auto":
+        mode = "cut_only" if op == "=" else "full"
+
+    cut_cells = cut_data.hosted_entities[
+        cut_data.domains[idx] == DOMAIN_INTERSECTED]
+    split = mesh.ref_cell.simplex_split
+    VOL, SURF = simplex_cut_tables(tdim)
+    verts_out, cells_out, parents, iscut = [], [], [], []
+    nv_off = 0
+
+    def add_parts(X, valid, parent_cells, cut_flag):
+        nonlocal nv_off
+        C, M, m, g = X.shape
+        sel = np.nonzero(valid)
+        npart = len(sel[0])
+        if npart == 0:
+            return
+        verts_out.append(X[sel[0], sel[1]].reshape(-1, g))
+        cells_out.append((np.arange(npart * m) + nv_off).reshape(npart, m))
+        nv_off += npart * m
+        parents.append(parent_cells[sel[0]])
+        iscut.append(np.full(npart, cut_flag, np.int8))
+
+    if len(cut_cells):
+        V = phi.function_space
+        dev = phi.x.device
+        dofs = phi.x.detach().cpu().numpy()[V.dofmap[cut_cells]]
+        tab = np.asarray(V.element.tabulate(mesh.ref_cell.vertices))
+        phiv = np.einsum("pn,cn->cp", tab, dofs)
+        coords = mesh.cell_vertex_coords[cut_cells]
+        for sub in split:
+            pv = torch.as_tensor(coords[:, sub, :], device=dev)
+            ph = torch.as_tensor(phiv[:, sub], device=dev)
+            if op == "=":
+                X, valid = _march_parts(ph, pv, tdim, SURF)
+            else:
+                sgn = -1.0 if op in (">", ">=") else 1.0
+                X, valid = _march_parts(sgn * ph, pv, tdim, VOL)
+            add_parts(X.cpu().numpy(), valid.cpu().numpy(), cut_cells, 1)
+
+    if mode == "full" and op != "=":
+        want = DOMAIN_INSIDE if op in ("<", "<=") else DOMAIN_OUTSIDE
+        full_cells = cut_data.hosted_entities[cut_data.domains[idx] == want]
+        if len(full_cells):
+            coords = mesh.cell_vertex_coords[full_cells]
+            for sub in split:
+                pv = coords[:, sub, :]
+                add_parts(pv[:, None], np.ones((pv.shape[0], 1), bool),
+                          full_cells, 0)
+
+    if not verts_out:
+        return CutMesh(None, np.zeros(0, np.int32), np.zeros(0, np.int8))
+    out_dim = tdim - 1 if op == "=" else tdim
+    vis = Mesh(np.concatenate(verts_out), np.concatenate(cells_out),
+               _SIMPLEX_OF_DIM[out_dim])
+    return CutMesh(vis, np.concatenate(parents), np.concatenate(iscut))

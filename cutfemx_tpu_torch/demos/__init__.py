@@ -1,4 +1,4 @@
-"""The port's counterparts of the reference's 2D demos.
+"""The port's counterparts of the reference's demos.
 
 Each module has the reference script's parameters and a ``run(...)`` that
 returns the errors and the solve information instead of printing them:
@@ -11,7 +11,12 @@ returns the errors and the solve information instead of printing them:
   5), re-cut, re-assembly and a direct solve per step;
 - ``demo_stokes``: cut Stokes (config 4), the flow around a cylinder with
   strong inflow and wall conditions (``run``) and a manufactured problem
-  through block or monolithic mixed forms (``run_manufactured``).
+  through block or monolithic mixed forms (``run_manufactured``);
+- ``demo_stl_distance``: the signed distance to an STL surface (a sphere
+  by default) on a box mesh;
+- ``demo_reinit``: reinitialization of a non-distance level set;
+- ``demo_compliance_optimization``: the level-set compliance (shape)
+  optimization loop (``run`` takes the command line's options).
 
 ``run`` works on the CUDA card unless called with ``device="cpu"``.
 Run one as ``python -m cutfemx_tpu_torch.demos.demo_poisson --n 32``.

@@ -457,6 +457,8 @@ def apply_lifting(b, a_forms, bcs_lists, scale=1.0):
     out = np.array(b.detach().cpu().numpy() if is_tensor else b)
     for a, bcs in zip(a_forms, bcs_lists):
         U = a.trial_space
+        for bc in bcs:
+            _check_bc_space(bc.function_space, (U,))
         bcs = [bc for bc in bcs if bc.function_space is U]
         if not bcs:
             continue
@@ -672,7 +674,9 @@ def assemble_matrix(f, bcs=None, extension_terms=None):
     CSR data, and a form whose test and trial space are one space gets a
     unit diagonal there (pair with apply_lifting + set_bc). A condition on
     another space (by identity) leaves the form alone, as in DOLFINx, so
-    one list of conditions serves every block of a mixed system."""
+    one list of conditions serves every block of a mixed system. Two
+    equal but distinct space objects raise ValueError: which rule they
+    want cannot be told."""
     if extension_terms:
         raise NotImplementedError(
             "assemble_matrix(extension_terms=...): aggregation extensions "
@@ -711,11 +715,41 @@ def assemble_matrix(f, bcs=None, extension_terms=None):
     return A
 
 
+def _equal_spaces(a, b):
+    """Two distinct space objects that no assembly can tell apart: one
+    mesh object, one element, one block size and dimension."""
+    return (a is not b and a.mesh is b.mesh and a.family == b.family
+            and a.degree == b.degree and a.bs == b.bs and a.dim == b.dim)
+
+
+def _check_bc_space(bc_space, spaces):
+    """Conditions are matched to a form's spaces by identity. A condition
+    whose space equals one of them without being it is ambiguous: it may
+    mean a diagonal block (rows and columns eliminated, unit diagonal) or
+    an off-diagonal block of two equal fields (rows only, as DOLFINx
+    does). Raise instead of guessing."""
+    if any(_equal_spaces(bc_space, sp) for sp in spaces):
+        raise ValueError(
+            "a Dirichlet condition's space equals the form's test or trial "
+            "space but is another object: a square (diagonal) form must "
+            "take one space object for its test and trial functions and "
+            "its conditions")
+
+
 def _eliminate_bcs(A, bcs, V, U):
     """Zero the rows of the bcs on V and the columns of those on U (on the
     CSR data: a lil fancy assignment would materialise dense blocks), then
-    a unit diagonal on the constrained rows when V is U."""
+    a unit diagonal on the constrained rows when V is U. A square form
+    over two equal space objects raises (see _check_bc_space)."""
     import scipy.sparse as sps
+
+    if _equal_spaces(V, U):
+        raise ValueError(
+            "assemble_matrix(bcs=...) on a form whose test and trial spaces "
+            "are two equal space objects: a square (diagonal) form must "
+            "take one space object for its test and trial functions")
+    for bc in bcs:
+        _check_bc_space(bc.function_space, (V, U))
 
     def dofs_on(space):
         d = [bc.dofs for bc in bcs if bc.function_space is space]

@@ -15,7 +15,8 @@ from .la import MatrixCSR
 from .stencil import StencilCutOperator
 
 __all__ = ["operator_from_reference", "function_from_reference",
-           "matrix_from_reference",
+           "matrix_from_reference", "trisoup_from_reference",
+           "cell_triangle_map_from_reference",
            "GRID_STATE_KEYS", "GRID_LAYOUT_KEYS", "STACK_KEYS"]
 
 # a cutfemx_tpu StencilCutOperator's _grid_statics() + _grid_arrays()
@@ -132,3 +133,23 @@ def matrix_from_reference(A):
     import scipy.sparse as sps
     m = A.to_scipy() if hasattr(A, "to_scipy") else A
     return MatrixCSR(sps.csr_matrix(m, copy=True))
+
+
+def trisoup_from_reference(X, tri, N, tri_gid=None):
+    """The port's TriSoup holding copies of a reference soup's arrays
+    (vertices, triangles, unit normals and global ids; the ids default to
+    0..nt-1)."""
+    from .distance.stl import TriSoup
+    tri = np.array(tri, dtype=np.int32)
+    gid = np.arange(len(tri), dtype=np.int64) if tri_gid is None else \
+        np.array(tri_gid, dtype=np.int64)
+    return TriSoup(np.array(X, dtype=np.float64), tri,
+                   np.array(N, dtype=np.float64), gid)
+
+
+def cell_triangle_map_from_reference(offsets, triangles):
+    """The port's CellTriangleMap holding copies of a reference map's CSR
+    arrays (cell offsets and candidate triangles)."""
+    from .distance.stl import CellTriangleMap
+    return CellTriangleMap(np.array(offsets, dtype=np.int64),
+                           np.array(triangles, dtype=np.int64))

@@ -262,6 +262,55 @@ def test_strong_bcs_and_lifting_match_reference(ref, port):
     assert not got[:, cols].count_nonzero()
 
 
+def test_square_form_over_two_equal_spaces_raises():
+    """Fault C1: strong conditions on a square form whose test and trial
+    spaces are two objects of one space. With two objects the port raises
+    ValueError in assemble_matrix(bcs=) and apply_lifting (it cannot tell
+    a diagonal block from an off-diagonal one of two equal fields); with
+    one object the matrix equals the reference's exactly: the rows and
+    columns of the 5 dofs at x = 0 zeroed, 1.0 on the diagonal, full
+    rank."""
+    def square(pkg, **kw):
+        d = importlib.import_module(pkg.__name__ + ".forms.dsl")
+        Measure = importlib.import_module(
+            pkg.__name__ + ".forms.measure").Measure
+        mesh = pkg.mesh.create_unit_square(4)
+        V1 = pkg.functionspace(mesh, ("Lagrange", 1), **kw)
+        V2 = pkg.functionspace(mesh, ("Lagrange", 1), **kw)
+        dx = Measure("dx", domain=mesh)
+        fkw = {"dtype": torch.float64} if kw else {}
+        forms = {k: pkg.fem.form(d.inner(d.grad(d.TrialFunction(U)),
+                                         d.grad(d.TestFunction(V1))) * dx,
+                                 **fkw)
+                 for k, U in (("two", V2), ("one", V1))}
+        dofs = pkg.fem.locate_dofs_geometrical(
+            V1, lambda x: np.isclose(x[0], 0.0))
+        return forms, pkg.fem.dirichletbc(0.0, dofs, V1), V2, dofs
+
+    (fj, bcj, _, dofs_j), (ft, bct, V2t, dofs_t) = \
+        square(cj), square(ct, device="cpu")
+    assert np.array_equal(dofs_j, dofs_t) and dofs_t.size == 5
+    with pytest.raises(ValueError, match="one space object"):
+        ct.fem.assemble_matrix(ft["two"], bcs=[bct])
+    with pytest.raises(ValueError, match="one space object"):
+        ct.fem.apply_lifting(np.zeros(V2t.dim), [ft["two"]], [[bct]])
+    # a condition on the trial space's equal twin is as ambiguous
+    with pytest.raises(ValueError, match="one space object"):
+        ct.fem.assemble_matrix(
+            ft["one"], bcs=[ct.fem.dirichletbc(0.0, dofs_t, V2t)])
+    Aj = cj.fem.assemble_matrix(fj["one"], bcs=[bcj]).to_scipy()
+    At = ct.fem.assemble_matrix(ft["one"], bcs=[bct]).to_scipy()
+    # exact: the same pattern and values, rows and columns zeroed, 1.0 on
+    # the constrained diagonal
+    assert abs(Aj - At).max() == 0.0
+    dense = At.toarray()
+    keep = np.setdiff1d(np.arange(dense.shape[0]), dofs_t)
+    assert not dense[np.ix_(dofs_t, keep)].any()
+    assert not dense[np.ix_(keep, dofs_t)].any()
+    assert np.array_equal(np.diag(dense)[dofs_t], np.ones(5))
+    assert np.linalg.matrix_rank(dense) == dense.shape[0]
+
+
 def test_manufactured_errors_match_reference():
     """demo_stokes.run_manufactured(8), through extract_blocks and through
     the MixedCutForm, against tests/test_stokes.py's solve_cut_stokes(8)."""
