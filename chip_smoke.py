@@ -36,6 +36,18 @@ Phases, each printing one line of numbers:
    operator apply. Then each torch stage of one iteration (fold apply, ASM
    apply, coarse apply, CG vector updates) and K1 timed alone on the
    pass's tensors, with its calls per pass and the bytes it must move.
+   mg_parity: tests/test_mg.py on the card (f64): the P1 transfer
+   interpolates exactly, and mg_solve_cg on its P1 and P2 cut Poisson
+   (n = 32) and vector elasticity (n = 24) problems gives the JAX-CPU
+   iteration counts and solution; mg_bench: bench.py's mg leg
+   (CUTFEMX_BENCH_SOLVER=mg) on the same n = 48 problem: f32 forms, host
+   CSR, deactivation, the multigrid hierarchy (P2 -> P1 at n = 48, 24, 12)
+   and V-cycle-preconditioned CG at rtol 1e-6, nu = 2: a warm-up through
+   mg_solve_cg and two timed passes that repeat its iterations and
+   solution bitwise, each at a true relative residual <= 1e-6 and within
+   +-5% (at least +-3) of the JAX-CPU count, no K1 launch; the time split
+   (forms, matrix, deactivation, hierarchy by stage, CG), one V-cycle and
+   one fine CSR apply as stage lines, a profiled CG pass;
 
 8. flower_parity: the 2D flower Poisson problem (BASELINE config 1; P1,
    f64, direct solve) at n = 16, 32 and 64, its L2 error against the
@@ -89,10 +101,16 @@ Phases, each printing one line of numbers:
     iterations) from the reference's initial design against the JAX-CPU
     history (iteration 0 within 1e-10 relative, all within 1e-6), the
     same run from the port's own design beside it, then n = 128 timed by
-    stage and a profiled 2-iteration run (device-busy share).
+    stage and a profiled 2-iteration run (device-busy share);
+20. demos_12a: the five demos of ROADMAP item 12a (the cut perimeter and
+    area in 2D and 3D, entity selectors, SIPG DG Poisson, cut elasticity,
+    moving Poisson) at their scripts' default sizes and one larger size,
+    against the JAX-CPU numbers (counts exactly, perimeter and area within
+    1e-10, L2 errors within 1e-6 relative).
 The 2D phases print which stages ran on the host (classification, the
 CSR matrices, the boundary conditions and the direct solves: host code by
-the reference's design). K1 must show 0 launches on the geometry path.
+the reference's design). K1 must show 0 launches on the mg, geometry and
+demo paths.
 
 ``--profile`` adds one pass of the slice and one of the stack under
 ``torch.profiler`` (device busy and idle share, K1's device time, the top
@@ -271,6 +289,98 @@ JAX_CPU_COMPLIANCE_N32 = [  # compliance, volume, Lagrangian, dt
      0.019571270313532223, 0.013375114692778554],
 ]
 F64_FLOPS_PER_S = 34e12             # H100 SXM published FP64 (non-tensor)
+
+# Geometric multigrid (mg.py; bench.py's CUTFEMX_BENCH_SOLVER=mg). The
+# problems of tests/test_mg.py at its sizes, with its rtol and maxiter,
+# and the JAX reference's (cutfemx_tpu, x64, on a CPU) iteration counts
+# and solution summaries (tests/test_torch_mg.py's reference_mg_parity;
+# PERF.md section 4 gives the command). bench.py's mg leg at n = 48: the
+# JAX-CPU count with x64 off, as bench.py runs it.
+MG_PARITY = {"p1": (32, 1e-10, 200), "p2": (32, 1e-8, 400),
+             "vector": (24, 1e-8, 200)}
+MG_TRANSFER_TOL = 1e-12
+MG_X_RTOL = 1e-8
+MG_NU = 2
+JAX_CPU_MG_ITERATIONS_N48 = 75
+JAX_CPU_MG = {
+    "p1": dict(iterations=10, x=dict(
+        n_values=1089, sum=10.746794089246988,
+        sumsq=96.05182608252133, min=-0.9676795327113978,
+        max=1.0120572590982864, negative=536,
+        samples=[
+            9.721099172071973e-16,
+            -2.931239980235241e-14,
+            -1.101167709344029e-11,
+            0.5003889923540125,
+            0.002204020673992307,
+            0.5003888484320829,
+            -1.100989518320108e-11,
+            -2.9308339115474866e-14,
+            9.71884294392846e-16,
+        ])),
+    "p2": dict(iterations=40, x=dict(
+        n_values=4225, sum=30.19258252863929,
+        sumsq=344.29026299576594, min=-0.9618963859843861,
+        max=0.9841438438764402, negative=2073,
+        samples=[
+            -1.369455319816126e-11,
+            9.65069784889237e-12,
+            -4.29309528818631e-14,
+            0.019126819239811608,
+            2.421085554295048e-12,
+            0.009615081813591492,
+            2.392755044788519e-12,
+            1.1132519530300747e-11,
+            -1.366622268717251e-11,
+        ])),
+    "vector": dict(iterations=12, x=dict(
+        n_values=1250, sum=-3.0763395533023394,
+        sumsq=0.09782031380028938, min=-0.041870967844499216,
+        max=0.014226227991192851, negative=697,
+        samples=[
+            5.942213998904037e-16,
+            -4.756684065027054e-14,
+            9.386773193346674e-05,
+            -6.368977619118787e-05,
+            6.847405121432961e-06,
+            -6.368977619120837e-05,
+            9.386773193347688e-05,
+            -4.7566840650273544e-14,
+            1.5794965155264362e-15,
+        ])),
+}
+# The demos of ROADMAP item 12a: the reference scripts' numbers (x64, on a
+# CPU; tests/test_torch_demos.py's reference_demos_12a, PERF.md section 4)
+DEMO_GEOM_TOL = 1e-10
+JAX_CPU_DEMOS = {
+    "perimeter_2d_32": dict(perimeter=2.699081123541433,
+        area=0.5788745431349056, inside_cells=246, cut_cells=90),
+    "perimeter_3d_32": dict(perimeter=2.3109424897658197,
+        area=0.3295373064231639, inside_cells=6252, cut_cells=3972),
+    "perimeter_2d_512": dict(perimeter=2.701759230542459,
+        area=0.580872547198562, inside_cells=75402, cut_cells=1506),
+    "locate_24": dict(cells={
+        "circle<0": 272, "circle=0": 102, "band<0": 192,
+        "circle<0 and band<0": 106, "circle=0 or band=0": 274,
+        "circle<=0 and band>0": 138}, boundary_facets_cut=0),
+    "locate_256": dict(cells={
+        "circle<0": 36504, "circle=0": 1046, "band<0": 31744,
+        "circle<0 and band<0": 18372, "circle=0 or band=0": 3074,
+        "circle<=0 and band>0": 17780}, boundary_facets_cut=0),
+    "dg_32": dict(dofs=6144, l2_error=0.000899973976956423),
+    "dg_128": dict(dofs=98304, l2_error=5.754689115358866e-05),
+    "elasticity_32": dict(active_cells=406, l2_error=0.002613623695632938),
+    "elasticity_256": dict(active_cells=22188, l2_error=4.121040337105886e-05),
+    "moving_32": dict(cut_cells=[79, 78, 76, 76, 76, 76, 78, 79],
+        l2_errors=[0.002899271884870814, 0.0027969071544687407,
+        0.002602399143231648, 0.0023709475362793473, 0.0023714053759645985,
+        0.0026036046117997335, 0.002797124867030176, 0.0028993258148858384]),
+    "moving_128": dict(cut_cells=[309, 306, 306, 308, 308, 306, 306, 309],
+        l2_errors=[0.00016591786675810994, 0.00015457051445770339,
+        0.00014162038853573634, 0.00013278148136509473, 0.00013279025473758702,
+        0.00014162430717667174, 0.00015457571304299534,
+        0.00016592449826442082]),
+}
 
 
 def _phase(phase, **numbers):
@@ -460,39 +570,10 @@ def pipeline(ct, mesh, phi, V, form_dtype, rtol=RTOL, precond="jacobi"):
     """One moving-domain step, as bench.py's pipeline(): classify ->
     quadrature -> forms -> assemble -> operator -> solve."""
     import torch
-    from cutfemx_tpu_torch import fem
-    from cutfemx_tpu_torch.forms.dsl import (CellDiameter, FacetNormal,
-                                             SpatialCoordinate, TestFunction,
-                                             TrialFunction, avg, dot, grad,
-                                             inner, jump, pi, sin)
-    from cutfemx_tpu_torch.forms.measure import Measure
     from cutfemx_tpu_torch.stencil import StencilCutOperator
     sync = torch.cuda.synchronize if phi.x.is_cuda else (lambda: None)
     t0 = time.perf_counter()
-    cd = ct.cut(phi)
-    inside = ct.locate_entities(cd, "phi<0")
-    vol = ct.runtime_quadrature(cd, "phi<0", 2 * DEGREE)
-    srf = ct.runtime_quadrature(cd, "phi=0", 2 * DEGREE)
-    gp = ct.ghost_penalty_facets(cd, "phi<0")
-    dxo = Measure("dx", domain=mesh, subdomain_data=[inside, vol])
-    dxg = Measure("dx", domain=mesh, subdomain_data=srf)
-    dSg = Measure("dS", domain=mesh, subdomain_data=gp)
-    u, v = TrialFunction(V), TestFunction(V)
-    x = SpatialCoordinate(mesh)
-    ng = ct.normal(phi)
-    nf = FacetNormal(mesh)
-    h = CellDiameter(mesh)
-    ue = sin(pi * x[0]) * sin(pi * x[1]) * sin(pi * x[2])
-    f = 3 * pi ** 2 * ue
-    a = inner(grad(u), grad(v)) * dxo
-    a += (-dot(grad(u), ng) * v - dot(grad(v), ng) * u
-          + GAMMA / h * u * v) * dxg
-    a += 0.1 * avg(h) * inner(jump(grad(u), nf), jump(grad(v), nf)) * dSg
-    L = f * v * dxo + (-dot(grad(v), ng) * ue + GAMMA / h * ue * v) * dxg
-    af = fem.form(a, dtype=form_dtype)
-    Lf = fem.form(L, dtype=form_dtype)
-    dom = fem.active_domain(af)
-    b = fem.assemble_vector(Lf)
+    af, b, dom = bench_forms(ct, mesh, phi, V, form_dtype)
     sync()
     t_forms = time.perf_counter()
     op = StencilCutOperator(af, dom)
@@ -721,8 +802,6 @@ def stage_times(op, b, its, launches):
     its kernels and their number (torch.profiler), the host time to enqueue
     it, its calls per pass, the bytes it must move and that bound."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from cutfemx_tpu_torch import stencil as st
     from cutfemx_tpu_torch.interior_stencil import interior_stencil_apply
     n, N, nch, table, _ = op._grid_statics()
@@ -754,35 +833,8 @@ def stage_times(op, b, its, launches):
             its, tm["coarse_bytes"] + 2 * tm["vec_bytes"]),
         "cg_update": (cg_update, its, tm["cg_vec_bytes"]),
     }
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    reps = 5
     for name, (fn, calls, nbytes) in stages.items():
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        host_ms = (time.perf_counter() - t0) / reps * 1e3   # enqueue only
-        torch.cuda.synchronize()
-        # a stage of ~100 small launches is enqueued slower than it runs, so
-        # events around it would time the host: sum its kernels' own times
-        with profile(activities=acts) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0]
-        seen = sum(e.count for e in kernels)
-        if not seen > 0:
-            raise RuntimeError(f"stage {name}: the profiler saw no device "
-                               "time")
-        # a profile can lose the records of its first kernels (K1 showed 3
-        # of its 5 launches): the mean kernel time, times the kernels of a
-        # call, does not depend on how many records came through
-        per_call = -(-seen // reps)
-        ms = sum(e.self_device_time_total for e in kernels) / 1e3 / seen \
-            * per_call
+        ms, per_call, seen, host_ms = stage_device_ms(fn)
         _phase("stage", stage=name, device_ms_per_call=ms,
                kernels_per_call=per_call, kernel_records=seen,
                host_enqueue_ms_per_call=host_ms, calls_per_pass=calls,
@@ -1690,6 +1742,451 @@ def shape_opt_phase(ct, dev, card):
            card=card)
 
 
+# -- geometric multigrid (mg.py) and the demos of ROADMAP item 12a ----------
+
+
+def _host(a):
+    """numpy copy of a tensor (on any device) or an array."""
+    return a.detach().cpu().numpy() if hasattr(a, "detach") else \
+        np.asarray(a)
+
+
+def mg_problem(pkg, which, n, device=None):
+    """tests/test_mg.py's systems in ``pkg``: the stabilized cut Poisson
+    problem in P1 or P2 (``which`` "p1", "p2") or the cut elasticity
+    problem in vector P1 ("vector"), on the n x n mesh of [-1, 1]^2 with a
+    disk of radius 0.6; f64 (the port on ``device``). Returns the space V,
+    the deactivated host CSR A and load vector b (numpy)."""
+    import importlib
+    fem = importlib.import_module(pkg.__name__ + ".fem")
+    d = importlib.import_module(pkg.__name__ + ".forms.dsl")
+    Measure = importlib.import_module(pkg.__name__ + ".forms.measure").Measure
+    if device is None:                 # the reference: x64 gives f64
+        kw, fkw, dkw = {}, {}, {}
+    else:
+        import torch
+        kw, fkw, dkw = ({"device": device}, {"dtype": torch.float64},
+                        {"dtype": torch.float64})
+    deg = 2 if which == "p2" else 1
+    mesh = pkg.mesh.create_rectangle((-1.0, -1.0), (1.0, 1.0), (n, n))
+    Vphi = pkg.functionspace(mesh, ("Lagrange", 1), **kw)
+    phi = pkg.Function(Vphi, name="phi", **fkw)
+    phi.interpolate(lambda x: np.sqrt(x[0] ** 2 + x[1] ** 2) - 0.6)
+    cd = pkg.cut(phi)
+    inside = pkg.locate_entities(cd, "phi<0")
+    vol = pkg.runtime_quadrature(cd, "phi<0", 2 * deg)
+    srf = pkg.runtime_quadrature(cd, "phi=0", 2 * deg)
+    gpf = pkg.ghost_penalty_facets(cd, "phi<0")
+    dxo = Measure("dx", domain=mesh, subdomain_data=[inside, vol])
+    dxg = Measure("dx", domain=mesh, subdomain_data=srf)
+    dSg = Measure("dS", domain=mesh, subdomain_data=gpf)
+    V = pkg.functionspace(mesh, ("Lagrange", deg),
+                          shape=(2,) if which == "vector" else (), **kw)
+    u, v = d.TrialFunction(V), d.TestFunction(V)
+    ng = pkg.normal(phi)
+    nf = d.FacetNormal(mesh)
+    h = d.CellDiameter(mesh)
+    if which == "vector":
+        def sigma(w):
+            e = d.sym(d.grad(w))
+            return 2 * e + 1.3 * d.tr(e) * d.Identity(2)
+        a = d.inner(sigma(u), d.sym(d.grad(v))) * dxo
+        a += (-d.inner(d.dot(sigma(u), ng), v)
+              - d.inner(d.dot(sigma(v), ng), u)
+              + 60.0 / h * d.inner(u, v)) * dxg
+        L = d.inner(d.as_vector([0.0, -1.0]), v) * dxo
+    else:
+        x = d.SpatialCoordinate(mesh)
+        ue = d.sin(d.pi * x[0]) * d.sin(d.pi * x[1])
+        f = 2 * d.pi ** 2 * ue
+        a = d.inner(d.grad(u), d.grad(v)) * dxo
+        a += (-d.dot(d.grad(u), ng) * v - d.dot(d.grad(v), ng) * u
+              + 40.0 / h * u * v) * dxg
+        L = f * v * dxo + (-d.dot(d.grad(v), ng) * ue
+                           + 40.0 / h * ue * v) * dxg
+    a += 0.1 * d.avg(h) * d.inner(d.jump(d.grad(u), nf),
+                                  d.jump(d.grad(v), nf)) * dSg
+    af, Lf = fem.form(a, **dkw), fem.form(L, **dkw)
+    dom = fem.active_domain(af)
+    A = fem.assemble_matrix(af)
+    b = np.array(_host(fem.assemble_vector(Lf)))
+    fem.deactivate_outside(A, b, dom)
+    return V, A, b
+
+
+def csr_true_rel_residual(A, x, b):
+    """||b - A x|| / ||b||, one apply of the host CSR in f64."""
+    m = A.to_scipy().astype(np.float64)
+    b = np.asarray(b, np.float64)
+    return float(np.linalg.norm(b - m @ _host(x).astype(np.float64))
+                 / np.linalg.norm(b))
+
+
+def _hold_summary(what, vals, want, rtol):
+    """Raise unless a field's value_summary matches the JAX-CPU one: the
+    samples, min and max within rtol * max|v|, the sum within
+    rtol * n * max|v| and the sum of squares within 2 rtol n max|v|^2.
+    Returns the largest sample error over max|v|."""
+    got = value_summary(vals)
+    vmax = max(abs(want["min"]), abs(want["max"]))
+    pts = np.asarray(got["samples"] + [got["min"], got["max"]])
+    ref = np.asarray(want["samples"] + [want["min"], want["max"]])
+    err = float(np.abs(pts - ref).max() / vmax)
+    n = want["n_values"]
+    if not (got["n_values"] == n and err <= rtol
+            and abs(got["sum"] - want["sum"]) <= rtol * n * vmax
+            and abs(got["sumsq"] - want["sumsq"]) <= 2 * rtol * n * vmax ** 2):
+        raise RuntimeError(f"{what}: off the JAX-CPU values by {err} of "
+                           f"max|v| (sum {got['sum']} vs {want['sum']})")
+    return err
+
+
+def mg_parity_phase(ct, dev, card):
+    """tests/test_mg.py on the card: the P1 transfer interpolates exactly,
+    and mg_solve_cg on its P1 and P2 cut Poisson and vector elasticity
+    problems at its sizes gives the JAX-CPU iteration counts and solution
+    (f64)."""
+    import torch
+    from cutfemx_tpu_torch import mg
+    for gen, nf, nc in ((ct.mesh.create_rectangle, (16, 16), (8, 8)),
+                        (ct.mesh.create_box, (8, 8, 8), (4, 4, 4))):
+        lo, hi = (-1.0,) * len(nf), (1.0,) * len(nf)
+        fine, coarse = gen(lo, hi, nf), gen(lo, hi, nc)
+        idx, w = mg.p1_grid_transfer(fine, coarse)
+        coef = np.array([2.0, -0.7, 0.4])[:len(nf)]
+        err = float(np.abs((w * (coarse.vertices @ coef + 0.3)[idx])
+                           .sum(axis=1) - (fine.vertices @ coef + 0.3)).max())
+        if not err < MG_TRANSFER_TOL:
+            raise RuntimeError(f"p1_grid_transfer {nf}: interpolation error "
+                               f"{err}")
+        _phase("mg_parity", case="p1_transfer", fine=list(nf),
+               coarse=list(nc), max_interpolation_error=err)
+    for which, (n, rtol, maxiter) in MG_PARITY.items():
+        t0 = time.perf_counter()
+        V, A, b = mg_problem(ct, which, n, dev)
+        t1 = time.perf_counter()
+        x, its, res = mg.mg_solve_cg(A, V, b, rtol=rtol, maxiter=maxiter)
+        t2 = time.perf_counter()
+        want = JAX_CPU_MG[which]
+        rel = csr_true_rel_residual(A, x, b)
+        if not (x.device == torch.device(dev) and x.dtype == torch.float64):
+            raise RuntimeError(f"mg {which}: solution not f64 on the card")
+        if its != want["iterations"] or not rel <= rtol * 1.01:
+            raise RuntimeError(f"mg {which} n={n}: {its} iterations (JAX-CPU "
+                               f"{want['iterations']}), true residual {rel}")
+        err = _hold_summary(f"mg {which} n={n}", _host(x), want["x"],
+                            MG_X_RTOL)
+        _phase("mg_parity", case=which, n=n, dofs=V.dim, rtol=rtol,
+               iterations=its, jax_cpu_iterations=want["iterations"],
+               true_rel_residual=rel, x_rel_err=err, problem_s=t1 - t0,
+               solve_s=t2 - t1, card=card)
+
+
+def bench_forms(ct, mesh, phi, V, form_dtype):
+    """bench.py's step up to the load vector: classify, quadrature, the
+    Nitsche + ghost-penalty forms in ``form_dtype``, the active domain and
+    b on the level set's device."""
+    from cutfemx_tpu_torch import fem
+    from cutfemx_tpu_torch.forms.dsl import (CellDiameter, FacetNormal,
+                                             SpatialCoordinate, TestFunction,
+                                             TrialFunction, avg, dot, grad,
+                                             inner, jump, pi, sin)
+    from cutfemx_tpu_torch.forms.measure import Measure
+    cd = ct.cut(phi)
+    inside = ct.locate_entities(cd, "phi<0")
+    vol = ct.runtime_quadrature(cd, "phi<0", 2 * DEGREE)
+    srf = ct.runtime_quadrature(cd, "phi=0", 2 * DEGREE)
+    gp = ct.ghost_penalty_facets(cd, "phi<0")
+    dxo = Measure("dx", domain=mesh, subdomain_data=[inside, vol])
+    dxg = Measure("dx", domain=mesh, subdomain_data=srf)
+    dSg = Measure("dS", domain=mesh, subdomain_data=gp)
+    u, v = TrialFunction(V), TestFunction(V)
+    x = SpatialCoordinate(mesh)
+    ng = ct.normal(phi)
+    nf = FacetNormal(mesh)
+    h = CellDiameter(mesh)
+    ue = sin(pi * x[0]) * sin(pi * x[1]) * sin(pi * x[2])
+    f = 3 * pi ** 2 * ue
+    a = inner(grad(u), grad(v)) * dxo
+    a += (-dot(grad(u), ng) * v - dot(grad(v), ng) * u
+          + GAMMA / h * u * v) * dxg
+    a += 0.1 * avg(h) * inner(jump(grad(u), nf), jump(grad(v), nf)) * dSg
+    L = f * v * dxo + (-dot(grad(v), ng) * ue + GAMMA / h * ue * v) * dxg
+    af = fem.form(a, dtype=form_dtype)
+    Lf = fem.form(L, dtype=form_dtype)
+    dom = fem.active_domain(af)
+    return af, fem.assemble_vector(Lf), dom
+
+
+def mg_pass(ct, dev, mesh, phi, V, entry=False):
+    """bench.py's mg leg once: f32 forms, ``assemble_matrix`` (element
+    matrices on the card, the CSR on the host), ``deactivate_outside``,
+    then ``mg.mg_solve_cg`` (``entry``) or its two stages timed apart: the
+    hierarchy (``MGPreconditioner``) and the CG (``solve_cg``)."""
+    import torch
+    from cutfemx_tpu_torch import fem, mg
+    torch.cuda.reset_peak_memory_stats(dev)
+    sync = torch.cuda.synchronize
+    t0 = time.perf_counter()
+    af, b, dom = bench_forms(ct, mesh, phi, V, torch.float32)
+    sync()
+    t1 = time.perf_counter()
+    A = fem.assemble_matrix(af)
+    t2 = time.perf_counter()
+    bb = _host(b).copy()
+    fem.deactivate_outside(A, bb, dom)
+    t3 = time.perf_counter()
+    M = None
+    if entry:
+        x, its, res = mg.mg_solve_cg(A, V, bb, rtol=RTOL, maxiter=MAXITER,
+                                     nu=MG_NU)
+        sync()
+        t4 = t5 = time.perf_counter()
+    else:
+        M = mg.MGPreconditioner(A, V, nu=MG_NU)
+        t4 = time.perf_counter()
+        x, its, res = M.solve_cg(bb, rtol=RTOL, maxiter=MAXITER)
+        sync()
+        t5 = time.perf_counter()
+    return dict(x=x, its=its, res=res, A=A, b=bb, M=M,
+                true_rel_residual=csr_true_rel_residual(A, x, bb),
+                forms_s=t1 - t0, matrix_s=t2 - t1, deactivate_s=t3 - t2,
+                hierarchy_s=t4 - t3, cg_s=t5 - t4, total_s=t5 - t0,
+                peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+
+
+def stage_device_ms(fn, reps=5):
+    """One call of ``fn`` timed alone (L2 warm): (device ms from the
+    profiler's kernel records, kernels per call, kernel records seen, host
+    ms to enqueue it)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) / reps * 1e3   # enqueue only
+    torch.cuda.synchronize()
+    # a stage of ~100 small launches is enqueued slower than it runs, so
+    # events around it would time the host: sum its kernels' own times
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    seen = sum(e.count for e in kernels)
+    if not seen > 0:
+        raise RuntimeError("the profiler saw no device time")
+    # a profile can lose the records of its first kernels (K1 showed 3 of
+    # its 5 launches): the mean kernel time, times the kernels of a call,
+    # does not depend on how many records came through
+    per_call = -(-seen // reps)
+    ms = sum(e.self_device_time_total for e in kernels) / 1e3 / seen \
+        * per_call
+    return ms, per_call, seen, host_ms
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def mg_vcycle_bytes(M):
+    """The bytes one V-cycle must move: every smoothed level's CSR (values,
+    columns, row lengths) and inverse diagonal, the transfers, the coarse
+    inverse, and each level's right-hand side and correction once."""
+    isz = M.levels[0]["dinv"].element_size()
+    out = _nbytes(M.coarse_inv)
+    for k, lv in enumerate(M.levels):
+        out += 2 * M._sizes[k] * isz
+        if k < M.n_levels - 1:
+            out += _nbytes(*lv["A"], lv["dinv"])
+    for P, R in zip(M.prolongs, M.restricts):
+        out += _nbytes(*P, *R)
+    return out
+
+
+def mg_stage_lines(M, x, b, its, card):
+    """One V-cycle and one fine CSR apply alone on the pass's tensors:
+    device ms, kernels and host enqueue ms per call, calls per pass, the
+    bytes each must move and that bound; for the apply also one cuSPARSE
+    ``torch.mv`` of the same CSR (a yardstick the port never calls)."""
+    import torch
+    from cutfemx_tpu_torch import mg
+    r = torch.as_tensor(b, device=M.device)
+    A0 = M.levels[0]["A"]
+    n0 = M._sizes[0]
+    data, cols, lengths = A0
+    crow = torch.cat([lengths.new_zeros(1), torch.cumsum(lengths, 0)]).to(
+        torch.int32)
+    csr = torch.sparse_csr_tensor(crow, cols, data, size=(n0, n0))
+    lib = _device_times(lambda: torch.mv(csr, x), 20)
+    if not torch.allclose(torch.mv(csr, x), mg._csr_apply(A0, x),
+                          rtol=1e-5, atol=1e-6 * float(r.abs().max())):
+        raise RuntimeError("cuSPARSE mv and the port's CSR apply disagree")
+    # a pass: one V-cycle per iteration and one for the start; each
+    # applies the fine CSR 2 nu + 1 times, and CG once more
+    stages = {
+        "mg_vcycle": (lambda: M(r), its + 1, mg_vcycle_bytes(M), None),
+        "mg_fine_csr_apply": (lambda: mg._csr_apply(A0, x),
+                              (its + 1) * (2 * M.nu + 2),
+                              _nbytes(*A0) + 2 * n0 * x.element_size(),
+                              float(np.median(lib))),
+    }
+    for name, (fn, calls, nbytes, library_ms) in stages.items():
+        ms, per_call, seen, host_ms = stage_device_ms(fn)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        _phase("stage", stage=name, n=N_SLICE, levels=list(M._sizes),
+               device_ms_per_call=ms, kernels_per_call=per_call,
+               kernel_records=seen, host_enqueue_ms_per_call=host_ms,
+               calls_per_pass=calls, device_ms_per_pass=ms * calls,
+               bytes=nbytes, bound_ms=bound_ms, share=bound_ms / ms,
+               library_ms=library_ms, card=card)
+
+
+def mg_bench_phase(ct, dev, mesh, phi, V, card):
+    """bench.py's mg leg at n = 48 (912,673 P2 dofs): a warm-up through
+    ``mg_solve_cg``, two timed passes with the hierarchy and the CG timed
+    apart, which must repeat the warm-up's iterations and solution
+    bitwise; every pass at a true relative residual <= 1e-6 and within
+    +-5% (at least +-3) of the JAX-CPU count; no K1 launch. Then one
+    V-cycle and one fine CSR apply as stage lines, and one profiled CG
+    pass (device busy and idle share)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from cutfemx_tpu_torch import interior_stencil as ist
+    before = ist.launches
+    runs = [("warmup", mg_pass(ct, dev, mesh, phi, V, entry=True))]
+    for p in ("timed1", "timed2"):
+        runs.append((p, mg_pass(ct, dev, mesh, phi, V)))
+    k1 = ist.launches - before
+    band = max(ITERATION_BAND * JAX_CPU_MG_ITERATIONS_N48,
+               ITERATION_BAND_MIN)
+    x0 = runs[0][1]["x"]
+    for p, run in runs:
+        x = run["x"]
+        if not (torch.isfinite(x).all() and x.shape == (V.dim,)
+                and x.device == torch.device(dev)):
+            raise RuntimeError(f"mg {p}: non-finite or misshapen solution")
+        if not run["true_rel_residual"] <= RTOL:
+            raise RuntimeError(f"mg {p}: true relative residual "
+                               f"{run['true_rel_residual']} > {RTOL}")
+        if abs(run["its"] - JAX_CPU_MG_ITERATIONS_N48) > band:
+            raise RuntimeError(f"mg {p}: {run['its']} iterations, JAX-CPU "
+                               f"{JAX_CPU_MG_ITERATIONS_N48} (+-{band})")
+        if run["its"] != runs[0][1]["its"] or not torch.equal(x, x0):
+            raise RuntimeError(f"mg {p}: {run['its']} iterations or x "
+                               "differ from the warm-up's")
+        M = run["M"]
+        nums = {k: run[k] for k in ("forms_s", "matrix_s", "deactivate_s",
+                                    "hierarchy_s", "cg_s", "total_s",
+                                    "true_rel_residual", "peak_mem_gb")}
+        if M is not None:
+            nums.update(levels=list(M._sizes),
+                        nnz=[int(lv["A"][0].numel()) for lv in M.levels],
+                        lmax=[lv["lmax"] for lv in M.levels],
+                        hierarchy_split_s=M.build_times)
+        _phase("mg_bench", **{"pass": p}, n=N_SLICE, dofs=V.dim,
+               iterations=run["its"], residual_norm=run["res"],
+               jax_cpu_iterations=JAX_CPU_MG_ITERATIONS_N48,
+               ms_per_iteration=run["cg_s"] / run["its"] * 1e3, **nums,
+               card=card)
+    if k1:
+        raise RuntimeError(f"the mg path launched K1 {k1} times")
+    run = runs[-1][1]
+    M = run["M"]
+    mg_stage_lines(M, run["x"], run["b"], run["its"], card)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, its, _ = M.solve_cg(run["b"], rtol=RTOL, maxiter=MAXITER)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    items = [e for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in items) / 1e3
+    if not busy_ms > 0:
+        raise RuntimeError("the profiler saw no device time in the mg CG")
+    _phase("mg_profile", n=N_SLICE, iterations=its, wall_ms=wall_ms,
+           device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / wall_ms,
+           device_kernel_launches=sum(e.count for e in items),
+           launches_per_iteration=sum(e.count for e in items) / its,
+           k1_launches=k1, card=card)
+
+
+def demo_numbers(out):
+    """A demo's run(...) output with per-step records (the moving demo)
+    flattened into lists, as JAX_CPU_DEMOS keys them."""
+    steps = out.pop("per_step", None)
+    if steps is not None:
+        out.update(cut_cells=[s["cut_cells"] for s in steps],
+                   l2_errors=[s["l2_error"] for s in steps],
+                   step_s=[s["seconds"] for s in steps])
+    return out
+
+
+def hold_demo(case, got, want):
+    """Raise unless a demo's numbers match the reference's (the keys of
+    ``want``): counts exactly, perimeter and area within DEMO_GEOM_TOL, L2
+    errors within PINNED_RTOL relative. Returns the largest error."""
+    worst = 0.0
+    for key, ref in want.items():
+        val = got[key]
+        if key in ("perimeter", "area"):
+            err = abs(val - ref)
+            ok = err <= DEMO_GEOM_TOL
+        elif key in ("l2_error", "l2_errors"):
+            err = float((np.abs(np.asarray(val) - ref) / np.abs(ref)).max())
+            ok = err <= PINNED_RTOL
+        else:
+            err, ok = 0.0, val == ref
+        if not ok:
+            raise RuntimeError(f"demo {case}: {key} {val}, reference {ref}")
+        worst = max(worst, err)
+    return worst
+
+
+def demos_12a_phase(dev, card):
+    """The five demos of ROADMAP item 12a on the card (f64), at the
+    reference scripts' default sizes and one larger size each, against
+    the JAX-CPU numbers: counts exactly, perimeter and area within 1e-10,
+    L2 errors within 1e-6 relative."""
+    from cutfemx_tpu_torch.demos import (demo_boundary_sphere_perimeter,
+                                         demo_dg_poisson, demo_elasticity,
+                                         demo_locate_entities,
+                                         demo_moving_poisson)
+    cases = {
+        "perimeter_2d_32": lambda: demo_boundary_sphere_perimeter.run(
+            32, 2, device=dev),
+        "perimeter_3d_32": lambda: demo_boundary_sphere_perimeter.run(
+            32, 3, device=dev),
+        "perimeter_2d_512": lambda: demo_boundary_sphere_perimeter.run(
+            512, 2, device=dev),
+        "locate_24": lambda: demo_locate_entities.run(24, device=dev),
+        "locate_256": lambda: demo_locate_entities.run(256, device=dev),
+        "dg_32": lambda: demo_dg_poisson.run(32, device=dev),
+        "dg_128": lambda: demo_dg_poisson.run(128, device=dev),
+        "elasticity_32": lambda: demo_elasticity.run(32, device=dev),
+        "elasticity_256": lambda: demo_elasticity.run(256, device=dev),
+        "moving_32": lambda: demo_moving_poisson.run(32, 8, device=dev),
+        "moving_128": lambda: demo_moving_poisson.run(128, 8, device=dev),
+    }
+    for case, fn in cases.items():
+        t0 = time.perf_counter()
+        out = demo_numbers(fn())
+        seconds = time.perf_counter() - t0
+        worst = hold_demo(case, out, JAX_CPU_DEMOS[case])
+        _phase("demos_12a", case=case, **out, seconds=seconds,
+               max_err_vs_jax_cpu=worst, card=card)
+
+
 def main():
     import argparse
     import torch
@@ -1761,6 +2258,18 @@ def main():
         compare_phase(ct, dev, mesh, phi, V, N_SLICE, (
             "jacobi", "asm", "asm2", "asm-fold", "pallas", "auto"))
         _phase("compare_done", seconds=time.perf_counter() - t0)
+
+    # geometric multigrid: tests/test_mg.py's problems, then bench.py's mg
+    # leg on the slice's n = 48 problem; no K1 on this path
+    t0 = time.perf_counter()
+    ist.launches = 0
+    mg_parity_phase(ct, dev, smi)
+    mg_bench_phase(ct, dev, mesh, phi, V, smi)
+    mg_k1 = ist.launches
+    if mg_k1:
+        raise RuntimeError(f"the mg path launched K1 {mg_k1} times")
+    _phase("mg_done", seconds=time.perf_counter() - t0, k1_launches=mg_k1,
+           total_seconds=time.perf_counter() - t_all)
     del mesh, phi, V
     for n in LARGE_SIZES:
         if getattr(args, f"n{n}"):
@@ -1804,6 +2313,16 @@ def main():
            k1_launches=geometry_k1,
            total_seconds=time.perf_counter() - t_all)
 
+    # the demos of ROADMAP item 12a: no K1 either
+    t0 = time.perf_counter()
+    ist.launches = 0
+    demos_12a_phase(dev, smi)
+    demos_k1 = ist.launches
+    if demos_k1:
+        raise RuntimeError(f"the demos launched K1 {demos_k1} times")
+    _phase("demos_done", seconds=time.perf_counter() - t0,
+           k1_launches=demos_k1, total_seconds=time.perf_counter() - t_all)
+
     # the main path's shape: the slice's grid and mask in f32, the CG's type
     main_row = next(r for r in k if r["shape"] == "n48_bench"
                     and r["dtype"] == "float32")
@@ -1812,7 +2331,8 @@ def main():
         "source": "cutfemx_tpu_torch/csrc/interior_stencil.cu",
         "replaces": "cutfemx_tpu/pallas_stencil.py:71",
         "launches": launches,
-        "launches_by_path": {"jacobi": jacobi_launches, "pallas": launches},
+        "launches_by_path": {"jacobi": jacobi_launches, "pallas": launches,
+                             "mg": mg_k1, "demos_12a": demos_k1},
         **{key: main_row[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")},
         "bound_by": "bytes",

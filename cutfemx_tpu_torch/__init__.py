@@ -46,9 +46,9 @@ create_cut_mesh = _cut_api.create_cut_mesh
 
 __version__ = "0.1.0"
 
-_LAZY_MODULES = ("fem", "la", "level_set", "stencil", "interior_stencil",
-                 "interop", "demos", "distance", "native", "optimization",
-                 "refine")
+_LAZY_MODULES = ("fem", "la", "level_set", "mg", "stencil",
+                 "interior_stencil", "interop", "demos", "distance",
+                 "native", "optimization", "refine")
 _LEVELSET_API = ("normal",)
 
 

@@ -16,7 +16,20 @@ returns the errors and the solve information instead of printing them:
   by default) on a box mesh;
 - ``demo_reinit``: reinitialization of a non-distance level set;
 - ``demo_compliance_optimization``: the level-set compliance (shape)
-  optimization loop (``run`` takes the command line's options).
+  optimization loop (``run`` takes the command line's options);
+- ``demo_boundary_sphere_perimeter``: the perimeter (surface area) and
+  area (volume) of a circle (sphere) from ``phi=0`` and ``phi<0`` rules of
+  order 3, in 2D or 3D;
+- ``demo_locate_entities``: cells classified against two level sets at
+  once, compound and union selectors, and boundary facets classified
+  against one level set (facet-hosted CutData);
+- ``demo_dg_poisson``: SIPG Poisson on a DG space with interior-facet
+  ``dS`` and boundary ``ds`` terms, no cut;
+- ``demo_elasticity``: linear elasticity on a cut disk in vector P1
+  (``sym``, ``tr``, ``Identity``), Nitsche and ghost penalty,
+  deactivation and a direct solve;
+- ``demo_moving_poisson``: Poisson on a translating disk, re-cut by
+  ``update`` and solved directly each step.
 
 ``run`` works on the CUDA card unless called with ``device="cpu"``.
 Run one as ``python -m cutfemx_tpu_torch.demos.demo_poisson --n 32``.

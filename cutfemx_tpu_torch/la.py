@@ -75,8 +75,10 @@ class MatrixCSR:
             if m.shape[0] != m.shape[1]:
                 raise ValueError(
                     "cannot set a diagonal on a non-square block")
-            d = sps.coo_matrix((np.full(len(rows), diag), (rows, rows)),
-                               shape=m.shape)
+            # in the matrix's dtype: an f32 matrix stays f32 (SciPy's sum
+            # with an f64 diagonal would promote it)
+            d = sps.coo_matrix((np.full(len(rows), diag, dtype=m.dtype),
+                                (rows, rows)), shape=m.shape)
             m = (m + d).tocsr()
         self._m = m
 

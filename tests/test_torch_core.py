@@ -281,7 +281,10 @@ def test_port_imports_no_jax():
         "import sys, torch\n"
         "import cutfemx_tpu_torch\n"
         "from cutfemx_tpu_torch import (fem, interior_stencil, interop, la,"
-        " level_set, stencil)\n"
+        " level_set, mg, stencil)\n"
+        "from cutfemx_tpu_torch.demos import (demo_boundary_sphere_perimeter,"
+        " demo_dg_poisson, demo_elasticity, demo_locate_entities,"
+        " demo_moving_poisson)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'cutfemx_tpu')]\n"
         "assert not bad, bad\n"
