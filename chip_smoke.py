@@ -106,11 +106,23 @@ Phases, each printing one line of numbers:
     area in 2D and 3D, entity selectors, SIPG DG Poisson, cut elasticity,
     moving Poisson) at their scripts' default sizes and one larger size,
     against the JAX-CPU numbers (counts exactly, perimeter and area within
-    1e-10, L2 errors within 1e-6 relative).
+    1e-10, L2 errors within 1e-6 relative);
+21. unfitted_demos: the extension-penalty study (n = 24, four betas) and
+    the surface DG Poisson (n = 16, 32) against the JAX-CPU numbers
+    (counts exactly, L2 errors and cond(active) within 1e-6 relative) and
+    tests/test_surface.py's gate (error(32) < 2e-2, rate > 1.3);
+22. unfitted_large: the study's extension-penalty Poisson (beta = 1) at
+    n = 128, 256, 512 and the surface DG at n = 256, 512 (true relative
+    residuals <= 1e-9, the time split, peak device memory); bench.py's
+    n = 48 box cut on the skeleton of its cut cells (facet-hosted rules
+    against the facets' areas, the facet cut mesh, the aggregation, the
+    penalty matrix's symmetry and constants); compound and union rules of
+    two planes at n = 1024 against the polygon areas; the n = 8, 16 and
+    128 sizes against the JAX-CPU numbers.
 The 2D phases print which stages ran on the host (classification, the
 CSR matrices, the boundary conditions and the direct solves: host code by
-the reference's design). K1 must show 0 launches on the mg, geometry and
-demo paths.
+the reference's design). K1 must show 0 launches on the mg, geometry,
+demo and unfitted paths.
 
 ``--profile`` adds one pass of the slice and one of the stack under
 ``torch.profiler`` (device busy and idle share, K1's device time, the top
@@ -380,6 +392,47 @@ JAX_CPU_DEMOS = {
         0.00014162038853573634, 0.00013278148136509473, 0.00013279025473758702,
         0.00014162430717667174, 0.00015457571304299534,
         0.00016592449826442082]),
+}
+
+# The unfitted-boundary surface (ROADMAP item 10 steps 1-4, item 12's two
+# demos): sizes, gates and the JAX-CPU numbers (x64, on a CPU;
+# tests/test_torch_unfitted_demos.py's reference_unfitted, PERF.md section
+# 4). Rule sums of the pins hold to PIN_SUM_RTOL relative, counts exactly.
+N_STUDY_LARGE = (128, 256, 512)      # 263,169 P1 dofs at 512
+N_SURFACE_LARGE = (256, 512)
+N_FACET_3D = 48                      # bench.py's box: 663,552 tets
+N_COMPOUND = 1024
+SURFACE_ERROR_MAX = 2e-2             # tests/test_surface.py's gate at 32
+SURFACE_RATE_MIN = 1.3               # ... and its rate from 16
+FACET_AREA_RTOL = 1e-12              # both volume parts = the facets
+CUT_MESH_AREA_RTOL = 1e-10           # cut mesh = 'phi<0' rules + facets
+POLYGON_RTOL = 1e-12                 # compound rules + cells = shoelace
+PENALTY_SYM_RTOL = 1e-14             # |M - M^T| / max|M|
+PENALTY_CONST_RTOL = 1e-12           # |M 1| / max|M|
+PIN_SUM_RTOL = 1e-10
+JAX_CPU_UNFITTED = {
+    "study_24": dict(ill_posed=44, roots=188, l2_errors=[
+        0.004140810291294253, 0.004140987708989939, 0.004142571484600244,
+        0.004157367193379282], conds=[906.1414159828223, 902.0731189582592,
+        867.2606735130139, 628.9871719772412]),
+    "study_128": dict(ill_posed=224, roots=5444,
+                      l2_errors=[0.00014965322967721412]),
+    "surface_16": dict(cut_cells=62, skeleton_facets=62,
+                       l2_error=0.01159487161818983),
+    "surface_32": dict(cut_cells=134, skeleton_facets=134,
+                       l2_error=0.0028612868297608093),
+    "facet_3d_8": dict(
+        cells=3072, cut_cells=276, skeleton_facets=456, cut_facets=456,
+        inside_facets=0, lo_sum=5.974025212902088, hi_sum=11.61557163373099,
+        interface_sum=55.98042549839046, cut_facet_area=17.589596846633082,
+        cut_mesh_cells=612, cut_mesh_area=5.974025212902088,
+        interior_cells=48, well_posed=120, ill_posed=204, rootless=0,
+        max_depth=12, penalty_nnz=1680, penalty_max=0.27578125),
+    "compound_16": dict(
+        and_rules=0.15393423913043464, and_parents=47, and_cells=143,
+        and_total=1.2711217391304348, and_polygon=1.2711217391304346,
+        or_rules=0.11200326086956522, or_parents=39, or_cells=422,
+        or_total=3.4088782608695656, or_polygon=3.408878260869565),
 }
 
 
@@ -2187,6 +2240,310 @@ def demos_12a_phase(dev, card):
                max_err_vs_jax_cpu=worst, card=card)
 
 
+
+# -- the unfitted-boundary surface (ROADMAP item 10 steps 1-4, item 12) ------
+
+
+def _simplex_measure(verts):
+    """Lengths, areas or volumes of simplices (E, k+1, gdim), on the
+    host."""
+    E = verts[:, 1:, :] - verts[:, :1, :]
+    gram = np.einsum("eig,ejg->eij", E, E)
+    k = E.shape[1]
+    return np.sqrt(np.abs(np.linalg.det(gram))) / [1, 1, 2, 6][k]
+
+
+def _clip(poly, c):
+    """Sutherland-Hodgman: the part of polygon ``poly`` where
+    c[0] x + c[1] y + c[2] <= 0."""
+    f = [c[0] * p[0] + c[1] * p[1] + c[2] for p in poly]
+    out = []
+    for i, p in enumerate(poly):
+        j = (i + 1) % len(poly)
+        if f[i] <= 0:
+            out.append(p)
+        if f[i] * f[j] < 0:
+            t = f[i] / (f[i] - f[j])
+            out.append(p + t * (poly[j] - p))
+    return out
+
+
+def _shoelace(poly):
+    x = np.array([p[0] for p in poly])
+    y = np.array([p[1] for p in poly])
+    return 0.5 * abs(float(np.dot(x, np.roll(y, -1))
+                           - np.dot(np.roll(x, -1), y)))
+
+
+# two planar P1 level sets on [-1, 1]^2: {a < 0} and {b < 0} half-planes
+COMPOUND_PLANES = {"a": (1.0, 0.5, -0.13), "b": (0.3, -1.0, -0.21)}
+
+
+def compound_numbers(pkg, n, device=None):
+    """The rules of 'a<0 and b<0' and 'a<0 or b<0' on the n x n mesh of
+    [-1, 1]^2 in ``pkg`` (the port on ``device``, f64): their weight sums
+    and parent counts, the cells locate_entities gives for each selector,
+    and rules + cells against the polygon's area (shoelace)."""
+    from cutfemx_tpu_torch.demos import stage_clock
+    clock = stage_clock(device)
+    kw, fkw = ({}, {}) if device is None else (
+        {"device": device}, {"dtype": __import__("torch").float64})
+    t0 = clock()
+    mesh = pkg.mesh.create_rectangle((-1.0, -1.0), (1.0, 1.0), (n, n))
+    V = pkg.functionspace(mesh, ("Lagrange", 1), **kw)
+    phis = []
+    for name, c in COMPOUND_PLANES.items():
+        f = pkg.Function(V, name=name, **fkw)
+        f.interpolate(lambda x, c=c: c[0] * x[0] + c[1] * x[1] + c[2])
+        phis.append(f)
+    cd = pkg.cut(phis)
+    square = [np.array(p, float) for p in ((-1, -1), (1, -1), (1, 1),
+                                           (-1, 1))]
+    half = {k: _shoelace(_clip(square, c))
+            for k, c in COMPOUND_PLANES.items()}
+    both = _shoelace(_clip(_clip(square, COMPOUND_PLANES["a"]),
+                           COMPOUND_PLANES["b"]))
+    polygon = {"and": both, "or": half["a"] + half["b"] - both}
+    out, t = {}, {"setup": clock() - t0}
+    for key in ("and", "or"):
+        sel = f"a<0 {key} b<0"
+        t0 = clock()
+        rules = pkg.runtime_quadrature(cd, sel, 2)
+        wsum = float(_host(rules.weights_padded).sum())
+        t[key] = clock() - t0
+        cells = pkg.locate_entities(cd, sel)
+        cells_area = float(_simplex_measure(
+            mesh.cell_vertex_coords[cells]).sum())
+        out.update({f"{key}_rules": wsum,
+                    f"{key}_parents": int(rules.parent_map.size),
+                    f"{key}_cells": int(cells.size),
+                    f"{key}_total": wsum + cells_area,
+                    f"{key}_polygon": polygon[key]})
+    out["seconds"] = t
+    return out
+
+
+def facet_3d_numbers(pkg, n, device=None):
+    """bench.py's geometry (create_box of [-1, 1]^3, n^3 x 6 tets, the P1
+    sphere r = 0.46) in ``pkg``: the interior facets of the cut cells as
+    facet-hosted CutData, their 'phi<0', 'phi>0', 'phi=0' rules (weight
+    sums) against the cut facets' areas, the facet-hosted cut mesh of
+    'phi<0', the cell aggregation of 'phi<0' at 0.5 and the P1 extension
+    penalty with beta = 1 (symmetry and constants, relative to max|M|).
+    Returns the numbers and the seconds of each stage."""
+    import importlib
+    from cutfemx_tpu_torch.demos import stage_clock
+    clock = stage_clock(device)
+    ext = importlib.import_module(pkg.__name__ + ".extensions")
+    kw, fkw = ({}, {}) if device is None else (
+        {"device": device}, {"dtype": __import__("torch").float64})
+    t, t0 = {}, clock()
+    mesh = pkg.mesh.create_box((-1, -1, -1), (1, 1, 1), (n, n, n))
+    V = pkg.functionspace(mesh, ("Lagrange", 1), **kw)
+    phi = pkg.Function(V, name="phi", **fkw)
+    phi.interpolate(lambda x: np.sqrt(x[0] ** 2 + x[1] ** 2 + x[2] ** 2)
+                    - 0.46)
+    t1 = clock()
+    t["mesh"] = t1 - t0
+    cd = pkg.cut(phi)
+    cut_cells = pkg.locate_entities(cd, "phi=0")
+    skel = pkg.interior_facets_for_cells(mesh, cut_cells)
+    fcd = pkg.cut(phi, skel, mesh.tdim - 1)
+    cut_f = pkg.locate_entities(fcd, "phi=0")
+    in_f = pkg.locate_entities(fcd, "phi<0")
+    t2 = clock()
+    t["cut"] = t2 - t1
+    rules = pkg.runtime_quadratures(fcd, ("phi<0", "phi>0", "phi=0"), 2)
+    sums = {k: float(_host(r.weights_padded).sum()) for k, r in rules.items()}
+    t3 = clock()
+    t["rules"] = t3 - t2
+    cm = pkg.create_cut_mesh(fcd, "phi<0")
+    t4 = clock()
+    t["cut_mesh"] = t4 - t3
+    agg = ext.create_cell_aggregation(cd, "phi<0", 0.5)
+    t5 = clock()
+    t["aggregation"] = t5 - t4
+    M = ext.extension_penalty_matrix(V, cd, agg, beta=1.0).to_scipy()
+    t["penalty"] = clock() - t5
+    mmax = float(np.abs(M.data).max())
+    area = lambda f: float(_simplex_measure(  # noqa: E731
+        mesh.vertices[mesh.facets[f]]).sum())
+    return dict(
+        cells=mesh.num_cells, cut_cells=int(cut_cells.size),
+        skeleton_facets=int(skel.size), cut_facets=int(cut_f.size),
+        inside_facets=int(in_f.size), lo_sum=sums["phi<0"],
+        hi_sum=sums["phi>0"], interface_sum=sums["phi=0"],
+        cut_facet_area=area(cut_f), inside_facet_area=area(in_f),
+        cut_mesh_cells=int(cm.mesh.num_cells),
+        cut_mesh_area=float(_simplex_measure(
+            cm.mesh.vertices[cm.mesh.cells]).sum()),
+        interior_cells=int(agg.interior_cells.size),
+        well_posed=int(agg.well_posed_cells.size),
+        ill_posed=int(agg.ill_posed_cells.size),
+        rootless=int(agg.rootless_cells.size),
+        max_depth=int(agg.propagation_depth.max()),
+        penalty_nnz=int(M.nnz), penalty_max=mmax,
+        penalty_asymmetry=float(abs(M - M.T).max()) / mmax,
+        penalty_constants=float(np.abs(M @ np.ones(M.shape[0])).max())
+        / mmax, seconds=t)
+
+
+def _hold_pin(case, got, want, rtol):
+    """Raise unless ``got`` matches a JAX-CPU pin: integers exactly, the
+    rest within ``rtol`` relative (lists element by element). Returns the
+    largest relative error."""
+    worst = 0.0
+    for key, ref in want.items():
+        val = got[key]
+        if isinstance(ref, int):
+            if val != ref:
+                raise RuntimeError(f"{case}: {key} {val}, JAX-CPU {ref}")
+            continue
+        err = float((np.abs(np.asarray(val, float) - ref)
+                     / np.abs(np.asarray(ref, float))).max())
+        if not err <= rtol:
+            raise RuntimeError(f"{case}: {key} {val}, JAX-CPU {ref}")
+        worst = max(worst, err)
+    return worst
+
+
+def _check_residual(case, residuals):
+    worst = float(np.max(residuals))
+    if not worst <= FLOWER_TRUE_RESIDUAL:
+        raise RuntimeError(f"{case}: direct solve's true relative residual "
+                           f"{worst}")
+    return worst
+
+
+def unfitted_demos_phase(dev, card):
+    """The two demos of the unfitted-boundary surface at their scripts'
+    defaults (f64) against the JAX-CPU numbers: the extension-penalty
+    study (n = 24, beta = 0, 0.1, 1, 10; counts exactly, L2 errors and
+    cond(active) within 1e-6 relative) and the surface DG (n = 32; counts
+    exactly, the L2(Gamma) error within 1e-6 relative; tests/
+    test_surface.py's gate from n = 16: error < 2e-2, rate > 1.3)."""
+    from cutfemx_tpu_torch.demos import (demo_poisson_extension_penalty_study
+                                         as study, demo_surface_poisson_dg
+                                         as surface)
+    t0 = time.perf_counter()
+    out = study.run(24, device=dev)
+    seconds = time.perf_counter() - t0
+    worst = _hold_pin("study_24", out, JAX_CPU_UNFITTED["study_24"],
+                      PINNED_RTOL)
+    res = _check_residual("study_24", out["residuals"])
+    _phase("unfitted_demos", case="study_24", **out, total_s=seconds,
+           max_residual=res, max_rel_err_vs_jax_cpu=worst, card=card)
+    errs = {}
+    for n in (16, 32):
+        t0 = time.perf_counter()
+        out = surface.run(n, device=dev)
+        seconds = time.perf_counter() - t0
+        res = _check_residual(f"surface_{n}", [out["residual"]])
+        worst = _hold_pin(f"surface_{n}", out,
+                          JAX_CPU_UNFITTED.get(f"surface_{n}", {}),
+                          PINNED_RTOL)
+        errs[n] = out["l2_error"]
+        _phase("unfitted_demos", case=f"surface_{n}", **out, total_s=seconds,
+               max_rel_err_vs_jax_cpu=worst, card=card)
+    rate = float(np.log2(errs[16] / errs[32]))
+    if not (errs[32] < SURFACE_ERROR_MAX and rate > SURFACE_RATE_MIN):
+        raise RuntimeError(f"surface DG: error {errs[32]}, rate {rate}")
+    _phase("unfitted_demos", case="surface_rate", rate=rate, card=card)
+
+
+def unfitted_large_phase(ct, dev, card):
+    """The slice at full width (f64): the study's extension-penalty
+    Poisson (beta = 1, no cond) at n = 128, 256, 512 and the surface DG at
+    n = 256, 512, each with its time split, peak device memory and a true
+    relative residual <= 1e-9 (n = 128 against the JAX-CPU pin); the
+    facet-hosted rules, cut mesh, aggregation and penalty on bench.py's
+    n = 48 geometry (n = 8 against the JAX-CPU pin); the compound and
+    union rules at n = 1024 against the polygon areas (n = 16 against the
+    JAX-CPU pin)."""
+    import torch
+    from cutfemx_tpu_torch.demos import (demo_poisson_extension_penalty_study
+                                         as study, demo_surface_poisson_dg
+                                         as surface)
+
+    def measured(fn):
+        """``fn()``, its seconds and its own peak device memory: the peak
+        above what earlier phases still held when it started."""
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, dict(total_s=time.perf_counter() - t0,
+                         peak_device_bytes=torch.cuda.max_memory_allocated(
+                             dev) - held, held_before_bytes=held)
+
+    errs = {}
+    for n in N_STUDY_LARGE:
+        out, m = measured(lambda: study.run(n, (1.0,), cond=False,
+                                            device=dev))
+        res = _check_residual(f"study_{n}", out["residuals"])
+        pin = JAX_CPU_UNFITTED.get(f"study_{n}")
+        worst = _hold_pin(f"study_{n}", out, pin, PINNED_RTOL) if pin \
+            else None
+        errs[n] = out["l2_errors"][0]
+        _phase("unfitted_large", case=f"study_{n}", **out, **m,
+               max_residual=res, max_rel_err_vs_jax_cpu=worst,
+               host_stages=["cut", "aggregation", "assemble_matrix CSR",
+                            "penalty CSR", "deactivate_outside",
+                            "direct_solve"], card=card)
+    _phase("unfitted_large", case="study_rates", rates=[
+        float(np.log2(errs[c] / errs[f]))
+        for c, f in zip(N_STUDY_LARGE, N_STUDY_LARGE[1:])], card=card)
+    errs = {}
+    for n in N_SURFACE_LARGE:
+        out, m = measured(lambda: surface.run(n, device=dev))
+        res = _check_residual(f"surface_{n}", [out["residual"]])
+        errs[n] = out["l2_error"]
+        _phase("unfitted_large", case=f"surface_{n}", **out, **m,
+               host_stages=["cut", "assemble_matrix CSR",
+                            "deactivate_outside", "direct_solve"],
+               card=card)
+    c, f = N_SURFACE_LARGE
+    _phase("unfitted_large", case="surface_rate",
+           rate=float(np.log2(errs[c] / errs[f])), card=card)
+
+    for n in (8, N_FACET_3D):
+        out, m = measured(lambda: facet_3d_numbers(ct, n, dev))
+        parts = out["lo_sum"] + out["hi_sum"]
+        checks = dict(
+            parts_vs_facet_area=abs(parts - out["cut_facet_area"])
+            / out["cut_facet_area"],
+            cut_mesh_vs_rules=abs(out["cut_mesh_area"] - out["lo_sum"]
+                                  - out["inside_facet_area"])
+            / out["cut_mesh_area"])
+        if not (checks["parts_vs_facet_area"] <= FACET_AREA_RTOL
+                and checks["cut_mesh_vs_rules"] <= CUT_MESH_AREA_RTOL
+                and out["rootless"] == 0
+                and out["penalty_asymmetry"] <= PENALTY_SYM_RTOL
+                and out["penalty_constants"] <= PENALTY_CONST_RTOL):
+            raise RuntimeError(f"facet_3d n={n}: {out}, {checks}")
+        pin = JAX_CPU_UNFITTED.get(f"facet_3d_{n}")
+        worst = _hold_pin(f"facet_3d_{n}", out, pin, PIN_SUM_RTOL) if pin \
+            else None
+        _phase("unfitted_large", case=f"facet_3d_{n}", **out, **checks, **m,
+               max_rel_err_vs_jax_cpu=worst,
+               host_stages=["cut", "interior_facets_for_cells",
+                            "aggregation sweep", "penalty CSR"], card=card)
+
+    for n in (16, N_COMPOUND):
+        out, m = measured(lambda: compound_numbers(ct, n, dev))
+        checks = {f"{k}_vs_polygon": abs(out[f"{k}_total"]
+                                         - out[f"{k}_polygon"])
+                  / out[f"{k}_polygon"] for k in ("and", "or")}
+        if not max(checks.values()) <= POLYGON_RTOL:
+            raise RuntimeError(f"compound n={n}: {out}")
+        pin = JAX_CPU_UNFITTED.get(f"compound_{n}")
+        worst = _hold_pin(f"compound_{n}", out, pin, PIN_SUM_RTOL) if pin \
+            else None
+        _phase("unfitted_large", case=f"compound_{n}", **out, **checks, **m,
+               max_rel_err_vs_jax_cpu=worst, card=card)
+
 def main():
     import argparse
     import torch
@@ -2323,6 +2680,21 @@ def main():
     _phase("demos_done", seconds=time.perf_counter() - t0,
            k1_launches=demos_k1, total_seconds=time.perf_counter() - t_all)
 
+    # the unfitted-boundary surface: facet-hosted and compound rules,
+    # runtime dS, surface fields, aggregation and the extension penalty;
+    # no K1 either
+    t0 = time.perf_counter()
+    ist.launches = 0
+    unfitted_demos_phase(dev, smi)
+    unfitted_large_phase(ct, dev, smi)
+    unfitted_k1 = ist.launches
+    if unfitted_k1:
+        raise RuntimeError(f"the unfitted path launched K1 {unfitted_k1} "
+                           "times")
+    _phase("unfitted_done", seconds=time.perf_counter() - t0,
+           k1_launches=unfitted_k1,
+           total_seconds=time.perf_counter() - t_all)
+
     # the main path's shape: the slice's grid and mask in f32, the CG's type
     main_row = next(r for r in k if r["shape"] == "n48_bench"
                     and r["dtype"] == "float32")
@@ -2332,7 +2704,8 @@ def main():
         "replaces": "cutfemx_tpu/pallas_stencil.py:71",
         "launches": launches,
         "launches_by_path": {"jacobi": jacobi_launches, "pallas": launches,
-                             "mg": mg_k1, "demos_12a": demos_k1},
+                             "mg": mg_k1, "demos_12a": demos_k1,
+                             "unfitted": unfitted_k1},
         **{key: main_row[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")},
         "bound_by": "bytes",

@@ -38,6 +38,7 @@ cut = _cut_api.cut
 update = _cut_api.update
 locate_entities = _cut_api.locate_entities
 runtime_quadrature = _cut_api.runtime_quadrature
+runtime_quadratures = _cut_api.runtime_quadratures
 ghost_penalty_facets = _cut_api.ghost_penalty_facets
 interior_facets_for_cells = _cut_api.interior_facets_for_cells
 CutData = _cut_api.CutData
@@ -48,8 +49,9 @@ __version__ = "0.1.0"
 
 _LAZY_MODULES = ("fem", "la", "level_set", "mg", "stencil",
                  "interior_stencil", "interop", "demos", "distance",
-                 "native", "optimization", "refine")
-_LEVELSET_API = ("normal",)
+                 "extensions", "native", "optimization", "refine")
+_LEVELSET_API = ("normal", "level_set_value", "surface_normal", "conormal",
+                 "correction_distance")
 
 
 def __getattr__(name):

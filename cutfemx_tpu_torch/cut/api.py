@@ -3,15 +3,18 @@ ghost_penalty_facets, create_cut_mesh — the torch counterpart of
 ``cutfemx_tpu.cut.api``.
 
 Classification and facet bands are host numpy; runtime quadrature and the
-cut-mesh marching run on the level set's device. Only the linear marching
-path (a P1 level set on cell-hosted CutData; cut meshes also march the
-vertex values of a higher-degree one) is ported; the rest waits for
-ROADMAP item 10.
+cut-mesh marching run on the level set's device. The linear marching path
+is ported: P1 level sets on cell-hosted CutData (compound and union
+selectors too), facet-hosted CutData of any degree (marched on the level
+set's values at the facet vertices), and cut meshes of either. The Saye
+backends and the refined and curved cuts of higher-degree level sets on
+cut cells wait for ROADMAP item 10.
 """
 
 from __future__ import annotations
 
 from collections.abc import Sequence
+from itertools import combinations
 
 import numpy as np
 import torch
@@ -20,13 +23,15 @@ from ..functionspace import Function
 from ..mesh import Mesh
 from .classify import CutData
 from .quadrature import (RuntimeQuadratureRules, _march_parts,
-                         interface_rules, volume_rules)
+                         compound_volume_rules, facet_interface_rules,
+                         facet_volume_rules, interface_rules, volume_rules)
 from .selector import (DOMAIN_INSIDE, DOMAIN_INTERSECTED, DOMAIN_OUTSIDE,
                        parse_selector)
 from .tables import simplex_cut_tables
 
 __all__ = [
-    "cut", "update", "locate_entities", "runtime_quadrature", "CutData",
+    "cut", "update", "locate_entities", "runtime_quadrature",
+    "runtime_quadratures", "CutData",
     "ghost_penalty_facets", "interior_facets_for_cells", "CutMesh",
     "create_cut_mesh",
 ]
@@ -71,15 +76,22 @@ def locate_entities(cut_data: CutData, ls_part: str):
 
 def runtime_quadrature(cut_data: CutData, ls_part: str, order: int, *,
                        backend: str = "straight") -> RuntimeQuadratureRules:
-    """Runtime quadrature for the selected part on intersected cells.
-    Inclusive selectors produce the same rules as the strict ones."""
+    """Runtime quadrature for the selected part on intersected entities
+    (cells, or facets for facet-hosted CutData). Inclusive selectors
+    produce the same rules as the strict ones. Compound AND selectors over
+    several level sets give the rules of the intersection region by
+    re-marching; OR selectors give signed-weight blocks by
+    inclusion-exclusion."""
+    if backend not in ("straight", "algoim", "algoim_general"):
+        raise ValueError(f"unknown backend '{backend}'")
     if backend != "straight":
         raise NotImplementedError(
             f"backend {backend!r} (ROADMAP item 10: Saye quadrature)")
     terms = parse_selector(ls_part)
-    if len(terms) != 1 or len(terms[0]) != 1:
-        raise NotImplementedError(
-            "compound and union selectors (ROADMAP item 10)")
+    if len(terms) > 1:
+        return _union_runtime_quadrature(cut_data, terms, order)
+    if len(terms[0]) > 1:
+        return _compound_runtime_quadrature(cut_data, terms[0], order)
     name, op = terms[0][0]
     try:
         idx = cut_data.level_set_names.index(name)
@@ -87,20 +99,114 @@ def runtime_quadrature(cut_data: CutData, ls_part: str, order: int, *,
         raise ValueError(f"unknown level-set name '{name}'") from None
     phi = cut_data.level_sets[idx]
     mesh = cut_data.mesh
-    if cut_data.hosted_dim != mesh.tdim:
-        raise NotImplementedError(
-            "facet-hosted runtime quadrature (ROADMAP item 10)")
-    if phi.function_space.degree > 1:
-        raise NotImplementedError(
-            "higher-degree level sets: refined and curved cuts "
-            "(ROADMAP item 10)")
     cut_entities = cut_data.hosted_entities[
         cut_data.domains[idx] == DOMAIN_INTERSECTED]
+    if cut_data.hosted_dim == mesh.tdim - 1:
+        # facets march the level set's values at their vertices (the
+        # reference's rule for every degree)
+        if op == "=":
+            return facet_interface_rules(mesh, phi, cut_entities, order)
+        side = "<" if op in ("<", "<=") else ">"
+        return facet_volume_rules(mesh, phi, cut_entities, order, side=side)
+    if cut_data.hosted_dim != mesh.tdim:
+        raise NotImplementedError(f"entity dim {cut_data.hosted_dim}")
+    _check_linear(phi)
     if op in ("<", "<="):
         return volume_rules(mesh, phi, cut_entities, order, side="<")
     if op in (">", ">="):
         return volume_rules(mesh, phi, cut_entities, order, side=">")
     return interface_rules(mesh, phi, cut_entities, order)
+
+
+def _check_linear(phi):
+    if phi.function_space.degree > 1:
+        raise NotImplementedError(
+            "higher-degree level sets on cut cells: refined and curved "
+            "cuts (ROADMAP item 10)")
+
+
+def _compound_masks(cut_data, clauses):
+    """(inclusive-match mask, any-clause-intersected mask, phis, sides)."""
+    phis, sides = [], []
+    incl = np.ones(len(cut_data.hosted_entities), bool)
+    any_cut = np.zeros(len(cut_data.hosted_entities), bool)
+    for name, op in clauses:
+        if op == "=":
+            raise NotImplementedError(
+                "compound selectors with '=' clauses are not supported "
+                "for runtime quadrature")
+        idx = cut_data.level_set_names.index(name)
+        d = cut_data.domains[idx]
+        want = DOMAIN_INSIDE if op in ("<", "<=") else DOMAIN_OUTSIDE
+        incl &= (d == want) | (d == DOMAIN_INTERSECTED)
+        any_cut |= d == DOMAIN_INTERSECTED
+        phis.append(cut_data.level_sets[idx])
+        sides.append("<" if op in ("<", "<=") else ">")
+    return incl, any_cut, phis, sides
+
+
+def _compound_runtime_quadrature(cut_data, clauses, order, cells=None):
+    """AND-intersection region rules: cells matching every clause
+    inclusively with at least one clause intersected (or an explicit cell
+    set); each cell cut recursively by all participating level sets."""
+    mesh = cut_data.mesh
+    if cut_data.hosted_dim != mesh.tdim:
+        raise NotImplementedError(
+            "compound runtime quadrature requires cell-hosted CutData")
+    incl, any_cut, phis, sides = _compound_masks(cut_data, clauses)
+    for phi in phis:
+        _check_linear(phi)
+    if cells is None:
+        cells = cut_data.hosted_entities[incl & any_cut]
+    return compound_volume_rules(mesh, list(zip(phis, sides)), cells,
+                                 order)
+
+
+def _union_runtime_quadrature(cut_data, terms, order):
+    """OR of AND-terms by inclusion-exclusion: |A u B| = A + B - A^B,
+    emitted as concatenated signed-weight rule blocks (every subset S of
+    terms contributes (-1)^(|S|+1) x rules(AND of S's clauses)). Cells
+    wholly inside some term are left to ``locate_entities``."""
+    for clauses in terms:
+        for name, op in clauses:
+            if op == "=":
+                raise NotImplementedError(
+                    "union selectors with '=' clauses are not supported "
+                    "for runtime quadrature")
+    fully_inside = np.zeros(len(cut_data.hosted_entities), bool)
+    for clauses in terms:
+        incl, any_cut, _, _ = _compound_masks(cut_data, clauses)
+        fully_inside |= incl & ~any_cut
+    pieces = []
+    for size in range(1, len(terms) + 1):
+        for subset in combinations(range(len(terms)), size):
+            # the subset's clauses, duplicates dropped, in order
+            uniq = list(dict.fromkeys(c for i in subset for c in terms[i]))
+            incl, _, _, _ = _compound_masks(cut_data, uniq)
+            cells = cut_data.hosted_entities[incl & ~fully_inside]
+            rules = _compound_runtime_quadrature(cut_data, uniq, order,
+                                                 cells=cells)
+            pieces.append((1.0 if size % 2 == 1 else -1.0, rules))
+    qmax = max(r.points_padded.shape[1] for _, r in pieces)
+    pts, wts = [], []
+    for sign, r in pieces:
+        pad = qmax - r.points_padded.shape[1]
+        pts.append(torch.nn.functional.pad(r.points_padded,
+                                           (0, 0, 0, pad)))
+        wts.append(torch.nn.functional.pad(sign * r.weights_padded,
+                                           (0, pad)))
+    return RuntimeQuadratureRules(
+        cut_data.mesh.tdim, np.concatenate([r.parent_map for _, r in pieces]),
+        torch.cat(pts), torch.cat(wts), mesh=cut_data.mesh)
+
+
+def runtime_quadratures(cut_data: CutData, ls_parts, order: int, *,
+                        backend: str = "straight"):
+    """{selector: runtime_quadrature(cut_data, selector, order)} for each
+    of ``ls_parts``."""
+    return {str(p): runtime_quadrature(cut_data, str(p), order,
+                                       backend=backend)
+            for p in ls_parts}
 
 
 # -- stabilization facet bands ----------------------------------------------
@@ -162,16 +268,18 @@ _SIMPLEX_OF_DIM = {1: "interval", 2: "triangle", 3: "tetrahedron"}
 
 
 def create_cut_mesh(cut_data: CutData, ls_part: str, mode=None) -> CutMesh:
-    """Build a simplex mesh of the selected part of cell-hosted CutData.
-    mode: 'full' includes the uncut cells of the phase, 'cut_only' only
-    the cut fragments; 'auto' is 'full' for volume parts and 'cut_only'
-    for interfaces. The fragments are marched in physical coordinates on
+    """Build a simplex mesh of the selected part of cell- or facet-hosted
+    CutData. mode: 'full' includes the uncut entities of the phase,
+    'cut_only' only the cut fragments; 'auto' is 'full' for volume parts
+    and 'cut_only' for interfaces. The fragments are marched in physical coordinates on
     the level set's device from its values at the cell vertices."""
     mode = mode or "auto"
     terms = parse_selector(ls_part)
     if len(terms) != 1 or len(terms[0]) != 1:
+        # as in the reference: a cut mesh is of one level set's part
         raise NotImplementedError(
-            "compound and union selectors (ROADMAP item 10)")
+            "cut meshes support single-clause selectors "
+            f"(got {ls_part!r})")
     name, op = terms[0][0]
     idx = cut_data.level_set_names.index(name)
     phi = cut_data.level_sets[idx]
@@ -180,9 +288,11 @@ def create_cut_mesh(cut_data: CutData, ls_part: str, mode=None) -> CutMesh:
     if op == "=" and mode == "full":
         raise ValueError(
             "mode='full' is not valid for interface parts ('=' selector)")
+    if cut_data.hosted_dim == tdim - 1:
+        return _create_facet_cut_mesh(cut_data, idx, op, mode)
     if cut_data.hosted_dim != tdim:
-        raise NotImplementedError(
-            "facet-hosted cut meshes (ROADMAP item 10)")
+        raise NotImplementedError("cut meshes require cell- or facet-hosted "
+                                  "CutData")
     if mode == "auto":
         mode = "cut_only" if op == "=" else "full"
 
@@ -190,21 +300,7 @@ def create_cut_mesh(cut_data: CutData, ls_part: str, mode=None) -> CutMesh:
         cut_data.domains[idx] == DOMAIN_INTERSECTED]
     split = mesh.ref_cell.simplex_split
     VOL, SURF = simplex_cut_tables(tdim)
-    verts_out, cells_out, parents, iscut = [], [], [], []
-    nv_off = 0
-
-    def add_parts(X, valid, parent_cells, cut_flag):
-        nonlocal nv_off
-        C, M, m, g = X.shape
-        sel = np.nonzero(valid)
-        npart = len(sel[0])
-        if npart == 0:
-            return
-        verts_out.append(X[sel[0], sel[1]].reshape(-1, g))
-        cells_out.append((np.arange(npart * m) + nv_off).reshape(npart, m))
-        nv_off += npart * m
-        parents.append(parent_cells[sel[0]])
-        iscut.append(np.full(npart, cut_flag, np.int8))
+    parts = _Parts()
 
     if len(cut_cells):
         V = phi.function_space
@@ -221,7 +317,7 @@ def create_cut_mesh(cut_data: CutData, ls_part: str, mode=None) -> CutMesh:
             else:
                 sgn = -1.0 if op in (">", ">=") else 1.0
                 X, valid = _march_parts(sgn * ph, pv, tdim, VOL)
-            add_parts(X.cpu().numpy(), valid.cpu().numpy(), cut_cells, 1)
+            parts.add(X.cpu().numpy(), valid.cpu().numpy(), cut_cells, 1)
 
     if mode == "full" and op != "=":
         want = DOMAIN_INSIDE if op in ("<", "<=") else DOMAIN_OUTSIDE
@@ -230,12 +326,80 @@ def create_cut_mesh(cut_data: CutData, ls_part: str, mode=None) -> CutMesh:
             coords = mesh.cell_vertex_coords[full_cells]
             for sub in split:
                 pv = coords[:, sub, :]
-                add_parts(pv[:, None], np.ones((pv.shape[0], 1), bool),
+                parts.add(pv[:, None], np.ones((pv.shape[0], 1), bool),
                           full_cells, 0)
 
-    if not verts_out:
-        return CutMesh(None, np.zeros(0, np.int32), np.zeros(0, np.int8))
-    out_dim = tdim - 1 if op == "=" else tdim
-    vis = Mesh(np.concatenate(verts_out), np.concatenate(cells_out),
-               _SIMPLEX_OF_DIM[out_dim])
-    return CutMesh(vis, np.concatenate(parents), np.concatenate(iscut))
+    return parts.cut_mesh(tdim - 1 if op == "=" else tdim)
+
+
+class _Parts:
+    """The simplices of a cut mesh as they are found: ``add`` takes the
+    valid parts of a marching (X (C, M, m, gdim), valid (C, M)) with their
+    parent entities; ``cut_mesh`` joins them."""
+
+    def __init__(self):
+        self.verts, self.cells, self.parents, self.iscut = [], [], [], []
+        self.nv = 0
+
+    def add(self, X, valid, parent_entities, cut_flag):
+        sel = np.nonzero(valid)
+        npart = len(sel[0])
+        if npart == 0:
+            return
+        m, g = X.shape[2], X.shape[3]
+        self.verts.append(X[sel[0], sel[1]].reshape(-1, g))
+        self.cells.append((np.arange(npart * m) + self.nv).reshape(npart, m))
+        self.nv += npart * m
+        self.parents.append(parent_entities[sel[0]])
+        self.iscut.append(np.full(npart, cut_flag, np.int8))
+
+    def cut_mesh(self, out_dim):
+        if not self.verts:
+            return CutMesh(None, np.zeros(0, np.int32), np.zeros(0, np.int8))
+        vis = Mesh(np.concatenate(self.verts), np.concatenate(self.cells),
+                   _SIMPLEX_OF_DIM[out_dim])
+        return CutMesh(vis, np.concatenate(self.parents),
+                       np.concatenate(self.iscut))
+
+
+def _create_facet_cut_mesh(cut_data, idx, op, mode):
+    """Mesh of the cut parts hosted on (simplex) facets, marched on the
+    level set's values at the facet vertices (exact for a P1 level set;
+    vertex dofs lead the Lagrange numbering) on its device."""
+    mesh = cut_data.mesh
+    k = mesh.tdim - 1
+    phi = cut_data.level_sets[idx]
+    if mesh.facets.shape[1] != k + 1:
+        raise NotImplementedError(
+            "facet-hosted cut meshes support simplex facets")
+    out_dim = k - 1 if op == "=" else k
+    if out_dim < 1:
+        raise NotImplementedError(
+            "facet interface parts in 2D are point sets, not meshes")
+    if mode == "auto":
+        mode = "cut_only" if op == "=" else "full"
+    VOL, SURF = simplex_cut_tables(k)
+    ents = cut_data.hosted_entities
+    dom = cut_data.domains[idx]
+    cut_facets = ents[dom == DOMAIN_INTERSECTED]
+    parts = _Parts()
+    if len(cut_facets):
+        dev = phi.x.device
+        fv = mesh.facets[cut_facets]
+        coords = torch.as_tensor(mesh.vertices[fv], dtype=phi.x.dtype,
+                                 device=dev)
+        ph = phi.x[torch.as_tensor(fv, dtype=torch.int64, device=dev)]
+        if op == "=":
+            X, valid = _march_parts(ph, coords, k, SURF)
+        else:
+            sgn = -1.0 if op in (">", ">=") else 1.0
+            X, valid = _march_parts(sgn * ph, coords, k, VOL)
+        parts.add(X.cpu().numpy(), valid.cpu().numpy(), cut_facets, 1)
+    if mode == "full" and op != "=":
+        want = DOMAIN_INSIDE if op in ("<", "<=") else DOMAIN_OUTSIDE
+        full_f = ents[dom == want]
+        if len(full_f):
+            coords = mesh.vertices[mesh.facets[full_f]]
+            parts.add(coords[:, None], np.ones((len(full_f), 1), bool),
+                      full_f, 0)
+    return parts.cut_mesh(out_dim)

@@ -15,8 +15,11 @@ Jacobian J(xi) the physical weight of rule point q is
 so runtime rules carry PHYSICAL weights, and the assembly kernels skip the
 detJ scaling for them.
 
-The curved (P2) cut, red refinement for higher-degree level sets, facet-
-hosted, compound and union rules wait for ROADMAP item 10.
+Facet-hosted rules (the parts of facets, and their codim-2 interface)
+and compound rules (an intersection of level-set regions, by re-marching
+each part against the next level set) share the same machinery. The
+curved (P2) cut and red refinement for higher-degree level sets on cut
+cells wait for ROADMAP item 10.
 """
 
 from __future__ import annotations
@@ -24,30 +27,38 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..cells import reference_cell
 from ..elements import lagrange_element
 from ..quadrature import quadrature_rule
 from .tables import canonical_edges, simplex_cut_tables
 
 __all__ = ["RuntimeQuadratureRules", "volume_rules", "interface_rules",
-           "full_cell_rules"]
+           "facet_volume_rules", "facet_interface_rules",
+           "compound_volume_rules", "full_cell_rules"]
 
 
 class RuntimeQuadratureRules:
     """Runtime quadrature rules of cut cells, padded: points_padded
     (n, Qmax, tdim) in parent reference coords and weights_padded
     (n, Qmax), PHYSICAL weights with zero padding, as tensors on the level
-    set's device; parent_map holds the n parent cells."""
+    set's device; parent_map holds the n parent entities. Facet-hosted
+    rules also carry the background cell whose reference coordinates the
+    points are in (``parent_cells``, the facet's first cell) and the
+    facet's local index in it (``local_facets``)."""
 
     kind = "per_entity"
 
     def __init__(self, tdim, parent_map, points_padded, weights_padded,
-                 mesh=None, normals_padded=None):
+                 mesh=None, parent_cells=None, local_facets=None,
+                 normals_padded=None):
         self.tdim = int(tdim)
         self.parent_map = np.asarray(parent_map, dtype=np.int32)
         self.points_padded = points_padded
         self.weights_padded = weights_padded
         self.mesh = mesh
-        self.parent_cells = self.parent_map   # cell-hosted rules only
+        self.parent_cells = (self.parent_map if parent_cells is None
+                             else np.asarray(parent_cells, np.int32))
+        self.local_facets = local_facets
         self.normals_padded = normals_padded  # interface geometric normals
 
 
@@ -209,6 +220,156 @@ def interface_rules(mesh, phi, cut_cells, order):
     return RuntimeQuadratureRules(
         tdim, cut_cells, pts.reshape(C, -1, tdim), w.reshape(C, -1),
         mesh=mesh, normals_padded=nphys.reshape(C, -1, nphys.shape[-1]))
+
+
+def _facet_setup(mesh, phi, facets):
+    """Per-facet inputs of the facet-hosted marching: (first adjacent
+    cells, their local facet indices, the facet vertices in those cells'
+    reference coords (C, nvf, tdim), the level set's dofs on those cells,
+    the cells' vertex coords, the facet simplex split)."""
+    cell = mesh.ref_cell
+    dt, dev = phi.x.dtype, phi.x.device
+    cells = mesh.facet_cells[facets, 0]
+    locals_ = mesh.facet_local_index[facets, 0]
+    fv = torch.as_tensor(cell.facet_vertices_coords()[locals_], dtype=dt,
+                         device=dev)
+    dofs = _cell_phi_dofs(phi, cells)
+    coords = torch.as_tensor(mesh.cell_vertex_coords[cells], dtype=dt,
+                             device=dev)
+    if cell.facet_cell_type == "quadrilateral":
+        fsplit = reference_cell("quadrilateral").simplex_split
+    else:
+        fsplit = np.arange(cell.tdim, dtype=np.int32)[None, :]
+    return cells, locals_, fv, dofs, coords, fsplit
+
+
+def facet_volume_rules(mesh, phi, facets, order, side="<"):
+    """Rules for the {phi < 0} (side '<') or {phi > 0} (side '>') parts of
+    the given facets (facet-hosted cuts). Points in the reference coords
+    of each facet's first adjacent cell; weights physical."""
+    k = mesh.ref_cell.tdim - 1
+    VOL, _ = simplex_cut_tables(k)
+    rule_pts, rule_w = quadrature_rule(_SIMPLEX_NAME[k], order)
+    facets = np.asarray(facets, dtype=np.int32)
+    C = len(facets)
+    cells, locals_, fv, dofs, coords, fsplit = _facet_setup(mesh, phi,
+                                                            facets)
+    el = phi.function_space.element
+    rw = torch.as_tensor(rule_w, dtype=fv.dtype, device=fv.device)
+    all_pts, all_w = [], []
+    for sub in fsplit:
+        verts = fv[:, np.asarray(sub), :]         # (C, k+1, tdim)
+        phis = torch.einsum("cpn,cn->cp", el.tabulate(verts), dofs)
+        if side == ">":
+            phis = -phis
+        X, valid = _march_parts(phis, verts, k, VOL)
+        pts, T = _map_rule(X, rule_pts)
+        w = _physical_weights(mesh.cell_type, coords, pts, T, rw, valid)
+        all_pts.append(pts.reshape(C, -1, mesh.tdim))
+        all_w.append(w.reshape(C, -1))
+    return RuntimeQuadratureRules(
+        mesh.tdim, facets, torch.cat(all_pts, dim=1),
+        torch.cat(all_w, dim=1), mesh=mesh, parent_cells=cells,
+        local_facets=locals_)
+
+
+def facet_interface_rules(mesh, phi, facets, order, polish=False):
+    """Codim-2 rules: {phi = 0} restricted to the given facets (the
+    skeleton rules of a surface DG method). In 3D each cut facet yields
+    segments; in 2D a single crossing point with physical weight 1 (the
+    rule has no dimension there). Points in the first adjacent cell's
+    reference coords.
+
+    ``polish`` moves 2D crossing points onto the root of the true
+    level-set basis along the facet by Newton's method (for a higher-
+    degree level set: the root, not the crossing of its linear
+    interpolant)."""
+    tdim = mesh.ref_cell.tdim
+    k = tdim - 1          # facet dimension; interface parts have dim k-1
+    _, SURF = simplex_cut_tables(k)
+    if k - 1 >= 1:
+        rule_pts, rule_w = quadrature_rule(_SIMPLEX_NAME[k - 1], order)
+    else:
+        rule_pts, rule_w = np.zeros((1, 0)), np.ones(1)
+    facets = np.asarray(facets, dtype=np.int32)
+    C = len(facets)
+    cells, locals_, fv, dofs, coords, fsplit = _facet_setup(mesh, phi,
+                                                            facets)
+    el = phi.function_space.element
+    rw = torch.as_tensor(rule_w, dtype=fv.dtype, device=fv.device)
+    all_pts, all_w = [], []
+    for sub in fsplit:
+        verts = fv[:, np.asarray(sub), :]
+        phis = torch.einsum("cpn,cn->cp", el.tabulate(verts), dofs)
+        X, valid = _march_parts(phis, verts, k, SURF)
+        if polish and k == 1 and X.shape[1] and X.shape[2] == 1:
+            # Newton on g(t) = phi(p + t*d) along the facet direction
+            d = verts[:, 1, :] - verts[:, 0, :]            # (C, tdim)
+            p = X[:, :, 0, :]                              # (C, M, tdim)
+            for _ in range(8):
+                g = torch.einsum("cpn,cn->cp", el.tabulate(p), dofs)
+                dg = torch.einsum("cpnt,cn,ct->cp", el.tabulate_grad(p),
+                                  dofs, d)
+                safe = torch.where(torch.abs(dg) > 1e-300, dg, 1.0)
+                p = p - (g / safe)[..., None] * d[:, None, :]
+            ok = torch.isfinite(p).all(-1) & valid
+            X = torch.where(ok[:, :, None, None], p[:, :, None, :], X)
+        pts, T = _map_rule(X, rule_pts)
+        if T.shape[-1] == 0:
+            # 2D: point "rules" of physical weight 1 at the crossing
+            w = valid[:, :, None].to(fv.dtype)
+        else:
+            w = _physical_weights(mesh.cell_type, coords, pts, T, rw, valid)
+        all_pts.append(pts.reshape(C, -1, tdim))
+        all_w.append(w.reshape(C, -1))
+    return RuntimeQuadratureRules(
+        tdim, facets, torch.cat(all_pts, dim=1), torch.cat(all_w, dim=1),
+        mesh=mesh, parent_cells=cells, local_facets=locals_)
+
+
+def compound_volume_rules(mesh, clauses, cells, order):
+    """Volume rules of an intersection region {AND_i phi_i OP_i 0}: each
+    cell's simplices are cut by the first level set, each resulting part
+    is re-cut by the next one, and so on. ``clauses``: [(phi, side)] with
+    side '<' or '>' (P1 level sets on one device). Points in parent
+    reference coords, physical weights."""
+    tdim = mesh.ref_cell.tdim
+    VOL, _ = simplex_cut_tables(tdim)
+    rule_pts, rule_w = quadrature_rule(_SIMPLEX_NAME[tdim], order)
+    cells = np.asarray(cells, dtype=np.int32)
+    C = len(cells)
+    dt, dev = clauses[0][0].x.dtype, clauses[0][0].x.device
+    coords = torch.as_tensor(mesh.cell_vertex_coords[cells], dtype=dt,
+                             device=dev)
+    sims = mesh.ref_cell.vertices[mesh.ref_cell.simplex_split]
+    NS = sims.shape[0]
+    # candidate parts of each cell: (C, B, d+1, tdim), and which are real
+    batch = torch.as_tensor(sims, dtype=dt, device=dev)[None].expand(
+        C, NS, tdim + 1, tdim)
+    batch_valid = torch.ones((C, NS), dtype=torch.bool, device=dev)
+    for phi, side in clauses:
+        B = batch.shape[1]
+        dofs = _cell_phi_dofs(phi, cells)                 # (C, nd)
+        tab = phi.function_space.element.tabulate(
+            batch.reshape(C, B * (tdim + 1), tdim))       # (C, B(d+1), nd)
+        phis = torch.einsum("cpn,cn->cp", tab, dofs).reshape(
+            C * B, tdim + 1)
+        if side == ">":
+            phis = -phis
+        X, valid = _march_parts(phis, batch.reshape(C * B, tdim + 1, tdim),
+                                tdim, VOL)
+        M = X.shape[1]
+        valid = valid & batch_valid.reshape(C * B)[:, None]
+        batch = X.reshape(C, B * M, tdim + 1, tdim)
+        batch_valid = valid.reshape(C, B * M)
+    B = batch.shape[1]
+    pts, T = _map_rule(batch.reshape(C * B, 1, tdim + 1, tdim), rule_pts)
+    w = _physical_weights(mesh.cell_type,
+                          torch.repeat_interleave(coords, B, dim=0), pts, T,
+                          torch.as_tensor(rule_w, dtype=dt, device=dev),
+                          batch_valid.reshape(C * B, 1))
+    return RuntimeQuadratureRules(tdim, cells, pts.reshape(C, -1, tdim),
+                                  w.reshape(C, -1), mesh=mesh)
 
 
 def _linear_gradient(verts, vals):

@@ -42,8 +42,8 @@ import torch
 
 def stage_clock(device):
     """A clock for stage timings: it waits for the device's queued work
-    before it reads the host's time."""
-    if torch.device(device).type == "cuda":
+    before it reads the host's time (``device=None``: the host's time)."""
+    if device is not None and torch.device(device).type == "cuda":
         def clock():
             torch.cuda.synchronize(device)
             return time.perf_counter()

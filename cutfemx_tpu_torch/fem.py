@@ -2,12 +2,14 @@
 
 The torch counterpart of ``cutfemx_tpu.fem``: ``form``/``CutForm`` (rank
 0, 1 and 2, per-block forms of a mixed space, ``dx``, ``ds`` and ``dS``
-integrals) with its bucket padding, the monolithic ``MixedCutForm``,
-``extract_blocks``, ``assemble_scalar/vector/matrix`` and their block
-variants, strong Dirichlet conditions (``dirichletbc``, ``locate_dofs_*``,
-``set_bc``, ``apply_lifting``), the sparsity helpers, ``active_domain``,
-``deactivate_outside``, ``zero_rows`` and their block variants,
-``derivative``/``newton_solve``, and the element-batched ``CutOperator``.
+integrals over standard entities or runtime rules, side-aware quadrature
+fields on runtime ``dS``) with its bucket padding, the monolithic
+``MixedCutForm``, ``extract_blocks``, ``assemble_scalar/vector/matrix``
+and their block variants, strong Dirichlet conditions (``dirichletbc``,
+``locate_dofs_*``, ``set_bc``, ``apply_lifting``), the sparsity helpers
+and extension-penalty terms, ``active_domain``, ``deactivate_outside``,
+``zero_rows`` and their block variants, ``derivative``/``newton_solve``,
+and the element-batched ``CutOperator``.
 The compiled kernels come from ``forms.compile``; this module decides which
 entities each integral runs over (standard vs runtime quadrature) and
 performs the global scatter.
@@ -198,17 +200,22 @@ class CutForm:
                     out.append(self._cell_instance(itg, ents))
                 out.append(self._runtime_cell_instance(itg, rules))
         elif itype == "exterior_facet":
-            if rules is not None:
-                raise NotImplementedError(
-                    "runtime ds integrals (ROADMAP item 10)")
-            facets = mesh.exterior_facets if ents is None else ents
-            out.append(self._exterior_facet_instance(itg, facets))
+            if rules is None:
+                facets = mesh.exterior_facets if ents is None else ents
+                out.append(self._exterior_facet_instance(itg, facets))
+            else:
+                if ents is not None and len(ents):
+                    out.append(self._exterior_facet_instance(itg, ents))
+                out.append(self._runtime_facet_instance(itg, rules))
         elif itype == "interior_facet":
-            if rules is not None:
-                raise NotImplementedError(
-                    "runtime dS integrals (ROADMAP item 10)")
-            facets = mesh.interior_facets if ents is None else ents
-            out.append(self._interior_facet_instance(itg, facets))
+            if rules is None:
+                facets = mesh.interior_facets if ents is None else ents
+                out.append(self._interior_facet_instance(itg, facets))
+            else:
+                if ents is not None and len(ents):
+                    out.append(self._interior_facet_instance(itg, ents))
+                out.append(self._runtime_interior_facet_instance(itg,
+                                                                 rules))
         else:
             raise NotImplementedError(
                 f"{itype} integrals (ROADMAP item 9)")
@@ -270,15 +277,23 @@ class CutForm:
             out.append(g if cells.ndim == 1 else g.reshape(g.shape[0], -1))
         return tuple(out)
 
-    def _qfield_arrays(self, qfields, rules):
+    def _qfield_arrays(self, qfields, rules, two_sided=False):
+        """Quadrature-field values at the rule points: (E, Q, *shape), or
+        (E, 2, Q, *shape) for a side-aware field on a runtime dS measure
+        (``two_sided``: its '+' then its '-' values)."""
+        out = []
         for qf in qfields:
             if getattr(qf, "side_dependent", False):
-                raise ValueError(
-                    f"{qf.name} is side-aware and requires a runtime dS "
-                    "measure")
-        return tuple(qf.evaluator(rules).to(device=self.device,
-                                            dtype=self.dtype)
-                     for qf in qfields)
+                if not two_sided:
+                    raise ValueError(
+                        f"{qf.name} is side-aware and requires a runtime dS "
+                        "measure")
+                v = torch.stack([qf.evaluator(rules, "+"),
+                                 qf.evaluator(rules, "-")], dim=1)
+            else:
+                v = qf.evaluator(rules)
+            out.append(v.to(device=self.device, dtype=self.dtype))
+        return tuple(out)
 
     def _cell_instance(self, itg, cells):
         from .forms.dsl import extract_coefficients, extract_qfields
@@ -341,6 +356,69 @@ class CutForm:
         )
         return IntegralInstance(kernel, "exterior_facet", False, facets,
                                 data=data, rows_cells=cells)
+
+    def _runtime_facet_instance(self, itg, rules):
+        """Runtime ds: facet-hosted rules, each in its facet's first
+        cell."""
+        from .forms.dsl import extract_coefficients, extract_qfields
+        mesh = self.mesh
+        parents = np.asarray(rules.parent_map, dtype=np.int32)
+        if parents.size == 0:
+            return None
+        if rules.local_facets is None:
+            raise ValueError("runtime ds integrals take facet-hosted rules")
+        cells = np.asarray(rules.parent_cells, dtype=np.int32)
+        kernel = compile_integral(itg, mesh.cell_type, mesh.gdim,
+                                  runtime=True)
+        data = dict(
+            coords=self._tensor(mesh.cell_vertex_coords[cells]),
+            h=self._tensor(mesh.cell_diameters()[cells]),
+            points=rules.points_padded.to(device=self.device,
+                                          dtype=self.dtype),
+            weights=rules.weights_padded.to(device=self.device,
+                                            dtype=self.dtype),
+            local_facet=self._tensor(np.asarray(rules.local_facets),
+                                     torch.int64),
+            coeffs=self._coeff_arrays(extract_coefficients(itg.integrand),
+                                      cells),
+            qfields=self._qfield_arrays(extract_qfields(itg.integrand),
+                                        rules),
+        )
+        return IntegralInstance(kernel, "exterior_facet", True, parents,
+                                rules=rules, data=data, rows_cells=cells)
+
+    def _runtime_interior_facet_instance(self, itg, rules):
+        """Runtime dS: per-facet cut rules on interior facets, the points
+        in the '+' cell's reference coords (the kernel pulls them back
+        into the '-' cell)."""
+        from .forms.dsl import extract_coefficients, extract_qfields
+        mesh = self.mesh
+        facets = np.asarray(rules.parent_map, dtype=np.int32)
+        if facets.size == 0:
+            return None
+        if rules.local_facets is None:
+            raise ValueError("runtime dS integrals take facet-hosted rules")
+        cells = mesh.facet_cells[facets]           # (E, 2)
+        if (cells[:, 1] < 0).any():
+            raise ValueError("runtime dS rules include boundary facets")
+        kernel = compile_integral(itg, mesh.cell_type, mesh.gdim,
+                                  runtime=True)
+        data = dict(
+            coords=self._tensor(mesh.cell_vertex_coords[cells]),
+            h=self._tensor(mesh.cell_diameters()[cells]),
+            points=rules.points_padded.to(device=self.device,
+                                          dtype=self.dtype),
+            weights=rules.weights_padded.to(device=self.device,
+                                            dtype=self.dtype),
+            local_facet=self._tensor(mesh.facet_local_index[facets],
+                                     torch.int64),
+            coeffs=self._coeff_arrays(extract_coefficients(itg.integrand),
+                                      cells),
+            qfields=self._qfield_arrays(extract_qfields(itg.integrand),
+                                        rules, two_sided=True),
+        )
+        return IntegralInstance(kernel, "interior_facet", True, facets,
+                                rules=rules, data=data, rows_cells=cells)
 
     def _interior_facet_instance(self, itg, facets):
         facets = np.asarray(facets, dtype=np.int32)
@@ -676,16 +754,16 @@ def assemble_matrix(f, bcs=None, extension_terms=None):
     another space (by identity) leaves the form alone, as in DOLFINx, so
     one list of conditions serves every block of a mixed system. Two
     equal but distinct space objects raise ValueError: which rule they
-    want cannot be told."""
-    if extension_terms:
-        raise NotImplementedError(
-            "assemble_matrix(extension_terms=...): aggregation extensions "
-            "(ROADMAP item 10)")
+    want cannot be told.
+
+    ``extension_terms`` (an ``extensions.ExtensionPenaltyTerm`` or a list
+    of them) adds the aggregation extension penalties before the
+    conditions are eliminated."""
     if isinstance(f, MixedCutForm):
-        if bcs:
+        if bcs or extension_terms:
             raise NotImplementedError(
-                "bcs with monolithic mixed forms: apply them per block via "
-                "extract_blocks")
+                "bcs/extension_terms with monolithic mixed forms: apply "
+                "them per block via extract_blocks")
         if f.rank != 2:
             raise ValueError("assemble_matrix requires a rank-2 form")
         return assemble_matrix_block(
@@ -710,9 +788,17 @@ def assemble_matrix(f, bcs=None, extension_terms=None):
         A = MatrixCSR.from_coo(np.concatenate(rows_all),
                                np.concatenate(cols_all),
                                np.concatenate(vals_all), (V.dim, U.dim))
+    if extension_terms:
+        from .extensions import assemble_extension_penalty
+        for term in _as_list(extension_terms):
+            assemble_extension_penalty(A, term)
     if bcs:
         _eliminate_bcs(A, bcs, V, U)
     return A
+
+
+def _as_list(terms):
+    return list(terms) if isinstance(terms, (list, tuple)) else [terms]
 
 
 def _equal_spaces(a, b):
@@ -812,11 +898,8 @@ def assemble_vector_block(L_blocks, spaces):
 
 def create_sparsity_pattern(f: CutForm, extension_terms=None):
     """Sparsity of a rank-2 form as a SciPy CSR structure matrix (int8
-    ones) with the deactivation diagonal included."""
-    if extension_terms:
-        raise NotImplementedError(
-            "create_sparsity_pattern(extension_terms=...): aggregation "
-            "extensions (ROADMAP item 10)")
+    ones) with the deactivation diagonal included. ``extension_terms``
+    adds the (bad, root) dof pair blocks of each penalty term."""
     if f.rank != 2:
         raise ValueError("create_sparsity_pattern requires a rank-2 form")
     import scipy.sparse as sps
@@ -833,6 +916,18 @@ def create_sparsity_pattern(f: CutForm, extension_terms=None):
         diag = np.arange(V.dim)
         rows.append(diag)
         cols.append(diag)
+    if extension_terms:
+        from .extensions import _penalty_dofs, extension_quadrature
+        for term in _as_list(extension_terms):
+            eq = extension_quadrature(term.V, term.cut_data,
+                                      term.aggregation,
+                                      term.quadrature_degree)
+            dofs = _penalty_dofs(term.V, eq)
+            nb, nd2 = dofs.shape
+            rows.append(np.broadcast_to(dofs[:, :, None],
+                                        (nb, nd2, nd2)).ravel())
+            cols.append(np.broadcast_to(dofs[:, None, :],
+                                        (nb, nd2, nd2)).ravel())
     data = np.ones(sum(len(r) for r in rows), np.int8)
     m = sps.coo_matrix((data, (np.concatenate(rows),
                                np.concatenate(cols))),
@@ -860,9 +955,9 @@ def insert_diagonal(A: MatrixCSR, rows, value=1.0):
     return A
 
 
-def create_matrix(f: CutForm):
+def create_matrix(f: CutForm, extension_terms=None):
     """A zero host CSR matrix of the form's shape (the sparsity is
-    implicit in the COO assembly)."""
+    implicit in the COO assembly, extension terms' included)."""
     import scipy.sparse as sps
     return MatrixCSR(sps.csr_matrix((f.test_space.dim, f.trial_space.dim)))
 

@@ -232,8 +232,8 @@ def test_from_stl_three_modes_match_reference(sphere_stl):
 def test_create_cut_mesh_matches_reference():
     """create_cut_mesh of a P1 circle on a 12^2 square: the interface
     ('phi=0', cut_only) and the inside ('phi<0', full and cut_only) give
-    the reference's pieces, parents and cut flags; facet-hosted data and
-    mode='full' on an interface raise."""
+    the reference's pieces, parents and cut flags; a facet-hosted 2D
+    interface (a point set) and mode='full' on an interface raise."""
     out = {}
     for pkg, kw in ((cj, {}), (ct, {"device": "cpu"})):
         mesh = pkg.mesh.create_rectangle((-1, -1), (1, 1), (12, 12))
@@ -261,7 +261,7 @@ def test_create_cut_mesh_matches_reference():
     phi = ct.Function(ct.functionspace(mesh, ("Lagrange", 1), device="cpu"))
     phi.interpolate(lambda x: x[0] - 0.1)
     cdf = ct.cut(phi, entities=np.arange(mesh.num_facets), entity_dim=1)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="point sets"):
         ct.create_cut_mesh(cdf, "phi=0")
 
 

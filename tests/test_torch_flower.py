@@ -194,8 +194,10 @@ def test_demo_poisson_reaches_the_pinned_l2_error():
 
 def test_unported_options_raise(port):
     """bcs= works (rows and columns of the constrained dofs zeroed, a unit
-    diagonal); extension terms, runtime ds rules and bcs on a monolithic
-    mixed form still raise."""
+    diagonal); a runtime ds measure over cell-hosted rules, and bcs and
+    extension terms on a monolithic mixed form, raise (runtime ds rules
+    and extension terms: tests/test_torch_facet_rules.py,
+    tests/test_torch_extensions.py)."""
     fem, d = ct.fem, port["d"]
     dofs = fem.locate_dofs_geometrical(port["V"],
                                        lambda x: np.isclose(x[0], -1.0))
@@ -203,11 +205,9 @@ def test_unported_options_raise(port):
         0.0, dofs, port["V"])]).to_scipy()
     assert np.array_equal(A[dofs].toarray(), np.eye(A.shape[0])[dofs])
     assert np.array_equal(A[:, dofs].toarray(), np.eye(A.shape[0])[:, dofs])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        fem.assemble_matrix(port["af"], extension_terms=[object()])
     from cutfemx_tpu_torch.forms.measure import Measure
     rules = ct.runtime_quadrature(ct.cut(port["phi"]), "phi=0", 2)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="facet-hosted"):
         fem.form(port["v"] * Measure("ds", domain=port["mesh"],
                                      subdomain_data=rules))
     W = d.MixedFunctionSpace(port["V"], port["V"])
@@ -218,3 +218,5 @@ def test_unported_options_raise(port):
     with pytest.raises(NotImplementedError, match="per block"):
         fem.assemble_matrix(mixed, bcs=[fem.dirichletbc(0.0, dofs,
                                                         port["V"])])
+    with pytest.raises(NotImplementedError, match="per block"):
+        fem.assemble_matrix(mixed, extension_terms=[object()])

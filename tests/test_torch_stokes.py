@@ -137,9 +137,12 @@ def test_block_forms_and_sparsity_match_reference(ref, port):
     for vj, vt in zip(ref["Lb"], port["Lb"]):
         assert rel_err(cj.fem.assemble_vector(vj),
                        ct.fem.assemble_vector(vt)) < 1e-12
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ct.fem.create_sparsity_pattern(port["ab"][0][0],
-                                       extension_terms=[object()])
+    # no extension term adds no pair block (the terms themselves:
+    # tests/test_torch_extensions.py)
+    s00 = ct.fem.create_sparsity_pattern(port["ab"][0][0])
+    assert abs(ct.fem.create_sparsity_pattern(port["ab"][0][0],
+                                              extension_terms=[]) - s00
+               ).nnz == 0
 
 
 def test_monolithic_form_equals_block_composition(ref, port):
