@@ -118,11 +118,31 @@ Phases, each printing one line of numbers:
     against the facets' areas, the facet cut mesh, the aggregation, the
     penalty matrix's symmetry and constants); compound and union rules of
     two planes at n = 1024 against the polygon areas; the n = 8, 16 and
-    128 sizes against the JAX-CPU numbers.
+    128 sizes against the JAX-CPU numbers;
+23. curved_bench: bench.py's n = 48 step with the sphere as a P2 level set
+    cut at cut_approximation_order=2 (the curved path: polished crossings,
+    isoparametric P2 parts) through solve_cg(precond="pallas"): a warm-up
+    and a timed pass, K1 once per operator apply, a true relative residual
+    <= 1e-6 and the JAX-CPU iteration count exactly; the cut cells, rule
+    points and stage seconds; then the default 'auto' cut of the same
+    level set (two red-refinement levels) through rules and forms: its
+    points and peak memory;
+24. curved_parity and saye_parity: the curved and red-refined volume and
+    area of the P2 sphere on n = 8 tets, Saye's (backend="algoim") area
+    and perimeter of a circle on n = 16 quads (Q1 and Q2) and volume and
+    area of the Q2 sphere on n = 8 hexahedra, and the L2 error of a small
+    direct Poisson solve on each path, against the JAX-CPU numbers (1e-10
+    relative);
+25. saye_large: bench.py's Nitsche + ghost-penalty Poisson on n = 24 and
+    48 hexahedra (117,649 Q1 dofs) with the Q2 sphere on Saye's rules,
+    solved by fem.CutOperator.solve_cg with Jacobi in f64: the box
+    grouping's host seconds and what it decided, the rules', forms' and
+    solve's seconds, the true residual, the L2 errors and their rate
+    (>= 1.8).
 The 2D phases print which stages ran on the host (classification, the
 CSR matrices, the boundary conditions and the direct solves: host code by
 the reference's design). K1 must show 0 launches on the mg, geometry,
-demo and unfitted paths.
+demo, unfitted, Saye and parity paths, and launch on the curved step.
 
 ``--profile`` adds one pass of the slice and one of the stack under
 ``torch.profiler`` (device busy and idle share, K1's device time, the top
@@ -133,7 +153,8 @@ preconditioner of ``solve_cg`` on the n = 48 step, cold and adopting (the
 numbers behind its 'auto' rule; 'asm-fold2' is left out, it is the path of
 'pallas'). ``--n72``, ``--n90`` and ``--n108`` run the stack, 'asm' and 'jacobi' at
 n = 72 (3,048,625 dofs), n = 90 (5,929,741 dofs) and n = 108 (10,218,313
-dofs), cold and adopting.
+dofs), cold and adopting, and the curved step and its 'auto' cut at
+n = 108 too.
 None is in the default run's time.
 
 Then one JSON line of the kernels, the nvidia-smi line, and, last, the JSON
@@ -435,9 +456,47 @@ JAX_CPU_UNFITTED = {
         or_total=3.4088782608695656, or_polygon=3.408878260869565),
 }
 
+# Higher-order cut geometry (ROADMAP item 10): bench.py's step with a P2
+# level set on the curved path, Saye's rules on hexahedra, and the JAX-CPU
+# numbers of both at small n (x64, on a CPU: tests/test_torch_curved_cut.py's
+# reference_curved and tests/test_torch_saye.py's reference_saye; PERF.md
+# section 4), held to HIGHER_ORDER_RTOL relative.
+# CG iterations of the JAX reference for the n = 48 step with the P2 sphere
+# cut at cut_approximation_order=2, x64 off, "asm-fold2" (PERF.md section 4)
+JAX_CPU_ITERATIONS_N48_CURVED = 86
+CURVED_CUT = {"cut_approximation_order": 2}
+N_CURVED_PARITY = 8
+CIRCLE_RADIUS = 0.55                 # tests/test_saye.py's circle
+N_SAYE_QUAD, N_SAYE_HEX = 16, 8
+N_SAYE_LARGE = (24, 48)              # 117,649 Q1 dofs at 48
+SAYE_ORDER = 4
+SAYE_CG_RTOL = 1e-10
+SAYE_RATE_MIN = 1.8
+HIGHER_ORDER_RTOL = 1e-10
+JAX_CPU_CURVED = {
+    "curved_volume": 0.40656659709193704, "curved_area": 2.6150436354425604,
+    "auto_volume": 0.4036941877451372, "auto_area": 2.6503806221976443,
+    "poisson_l2_error": 0.0038863412696948266, "poisson_dofs": 4913,
+    "poisson_cut_cells": 276}
+JAX_CPU_SAYE = {
+    "quad_q1_volume": 0.9421724646264453, "quad_q1_area": 3.4457008177724253,
+    "quad_q2_volume": 0.9503349002423807, "quad_q2_area": 3.455759200618874,
+    "hex_q2_volume": 0.4075315452288836, "hex_q2_area": 2.659325059500886,
+    "poisson_l2_error": 0.005115690296689805, "poisson_dofs": 729,
+    "poisson_cut_cells": 56}
+
 
 def _phase(phase, **numbers):
     print(json.dumps({"phase": phase, **numbers}), flush=True)
+
+
+def _syncer(phi):
+    """A function that drains the level set's device queue (a no-op off
+    the card), so that host clocks time whole stages."""
+    if getattr(phi.x, "is_cuda", False):
+        import torch
+        return torch.cuda.synchronize
+    return lambda: None
 
 
 def _import_port():
@@ -606,27 +665,26 @@ def kernel_phase(ct, dev, parent_src=None):
     return out
 
 
-def setup(ct, n, device, phi_dtype):
-    """Host setup of bench.py: mesh, level set, spaces and topology."""
-    mesh = ct.mesh.create_box((-1, -1, -1), (1, 1, 1), (n, n, n))
-    Vphi = ct.functionspace(mesh, ("Lagrange", 1), device=device)
-    phi = ct.Function(Vphi, name="phi", dtype=phi_dtype)
-    phi.interpolate(lambda x: np.sqrt(x[0] ** 2 + x[1] ** 2 + x[2] ** 2)
-                    - RADIUS)
+def setup(ct, n, device, phi_dtype, phi_degree=1):
+    """Host setup of bench.py: mesh, level set (the sphere in degree
+    ``phi_degree``), spaces and topology."""
+    mesh, phi = ho_mesh_phi(ct, n, "tetrahedron", phi_degree, _sphere(RADIUS),
+                            device=device, phi_dtype=phi_dtype)
     V = ct.functionspace(mesh, ("Lagrange", DEGREE), device=device)
     _ = mesh.facets
     _ = mesh.cell_diameters()
     return mesh, phi, V
 
 
-def pipeline(ct, mesh, phi, V, form_dtype, rtol=RTOL, precond="jacobi"):
+def pipeline(ct, mesh, phi, V, form_dtype, rtol=RTOL, precond="jacobi",
+             cut_kw=None):
     """One moving-domain step, as bench.py's pipeline(): classify ->
     quadrature -> forms -> assemble -> operator -> solve."""
-    import torch
     from cutfemx_tpu_torch.stencil import StencilCutOperator
-    sync = torch.cuda.synchronize if phi.x.is_cuda else (lambda: None)
+    sync = _syncer(phi)
     t0 = time.perf_counter()
-    af, b, dom = bench_forms(ct, mesh, phi, V, form_dtype)
+    P = poisson_forms(ct, mesh, phi, V, form_dtype, cut_kw=cut_kw)
+    af, b, dom = P["af"], P["b"], P["dom"]
     sync()
     t_forms = time.perf_counter()
     op = StencilCutOperator(af, dom)
@@ -636,7 +694,7 @@ def pipeline(ct, mesh, phi, V, form_dtype, rtol=RTOL, precond="jacobi"):
                              precond=precond)
     sync()
     t1 = time.perf_counter()
-    return dict(x=xs, its=int(its), b=b, op=op,
+    return dict(x=xs, its=int(its), b=b, op=op, forms=P,
                 assembly_s=t_mid - t0, forms_s=t_forms - t0,
                 operator_s=t_mid - t_forms, solve_s=t1 - t_mid,
                 total_s=t1 - t0)
@@ -1935,40 +1993,55 @@ def mg_parity_phase(ct, dev, card):
                solve_s=t2 - t1, card=card)
 
 
-def bench_forms(ct, mesh, phi, V, form_dtype):
-    """bench.py's step up to the load vector: classify, quadrature, the
-    Nitsche + ghost-penalty forms in ``form_dtype``, the active domain and
-    b on the level set's device."""
-    from cutfemx_tpu_torch import fem
-    from cutfemx_tpu_torch.forms.dsl import (CellDiameter, FacetNormal,
-                                             SpatialCoordinate, TestFunction,
-                                             TrialFunction, avg, dot, grad,
-                                             inner, jump, pi, sin)
-    from cutfemx_tpu_torch.forms.measure import Measure
-    cd = ct.cut(phi)
-    inside = ct.locate_entities(cd, "phi<0")
-    vol = ct.runtime_quadrature(cd, "phi<0", 2 * DEGREE)
-    srf = ct.runtime_quadrature(cd, "phi=0", 2 * DEGREE)
-    gp = ct.ghost_penalty_facets(cd, "phi<0")
+def poisson_forms(pkg, mesh, phi, V, form_dtype, *, cut_kw=None,
+                  backend="straight", order=2 * DEGREE):
+    """bench.py's step up to the load vector in ``pkg`` (cutfemx_tpu_torch,
+    or cutfemx_tpu for a JAX-CPU reference): classify (``cut_kw`` to
+    ``cut``), the runtime rules of ``order`` from ``backend``, the Nitsche
+    + ghost-penalty forms of u = sin(pi x) sin(pi y) sin(pi z) in
+    ``form_dtype``, the active domain and b on the level set's device.
+    Returns the forms, rules and measures, with the seconds of the cut
+    (classification and cell sets), of the rules and of the forms."""
+    import importlib
+    fem = importlib.import_module(pkg.__name__ + ".fem")
+    d = importlib.import_module(pkg.__name__ + ".forms.dsl")
+    Measure = importlib.import_module(pkg.__name__ + ".forms.measure").Measure
+    sync = _syncer(phi)
+    t0 = time.perf_counter()
+    cd = pkg.cut(phi, **(cut_kw or {}))
+    inside = pkg.locate_entities(cd, "phi<0")
+    gp = pkg.ghost_penalty_facets(cd, "phi<0")
+    t1 = time.perf_counter()
+    vol = pkg.runtime_quadrature(cd, "phi<0", order, backend=backend)
+    srf = pkg.runtime_quadrature(cd, "phi=0", order, backend=backend)
+    sync()
+    t2 = time.perf_counter()
     dxo = Measure("dx", domain=mesh, subdomain_data=[inside, vol])
     dxg = Measure("dx", domain=mesh, subdomain_data=srf)
     dSg = Measure("dS", domain=mesh, subdomain_data=gp)
-    u, v = TrialFunction(V), TestFunction(V)
-    x = SpatialCoordinate(mesh)
-    ng = ct.normal(phi)
-    nf = FacetNormal(mesh)
-    h = CellDiameter(mesh)
-    ue = sin(pi * x[0]) * sin(pi * x[1]) * sin(pi * x[2])
-    f = 3 * pi ** 2 * ue
-    a = inner(grad(u), grad(v)) * dxo
-    a += (-dot(grad(u), ng) * v - dot(grad(v), ng) * u
+    u, v = d.TrialFunction(V), d.TestFunction(V)
+    x = d.SpatialCoordinate(mesh)
+    ng = pkg.normal(phi)
+    nf = d.FacetNormal(mesh)
+    h = d.CellDiameter(mesh)
+    ue = d.sin(d.pi * x[0]) * d.sin(d.pi * x[1]) * d.sin(d.pi * x[2])
+    f = 3 * d.pi ** 2 * ue
+    a = d.inner(d.grad(u), d.grad(v)) * dxo
+    a += (-d.dot(d.grad(u), ng) * v - d.dot(d.grad(v), ng) * u
           + GAMMA / h * u * v) * dxg
-    a += 0.1 * avg(h) * inner(jump(grad(u), nf), jump(grad(v), nf)) * dSg
-    L = f * v * dxo + (-dot(grad(v), ng) * ue + GAMMA / h * ue * v) * dxg
+    a += 0.1 * d.avg(h) * d.inner(d.jump(d.grad(u), nf),
+                                  d.jump(d.grad(v), nf)) * dSg
+    L = f * v * dxo + (-d.dot(d.grad(v), ng) * ue
+                       + GAMMA / h * ue * v) * dxg
     af = fem.form(a, dtype=form_dtype)
     Lf = fem.form(L, dtype=form_dtype)
     dom = fem.active_domain(af)
-    return af, fem.assemble_vector(Lf), dom
+    b = fem.assemble_vector(Lf)
+    sync()
+    t3 = time.perf_counter()
+    return dict(af=af, Lf=Lf, b=b, dom=dom, vol=vol, srf=srf, inside=inside,
+                gp=gp, dxo=dxo, ue=ue, form_dtype=form_dtype,
+                cut_s=t1 - t0, rules_s=t2 - t1, forms_s=t3 - t2)
 
 
 def mg_pass(ct, dev, mesh, phi, V, entry=False):
@@ -1981,7 +2054,8 @@ def mg_pass(ct, dev, mesh, phi, V, entry=False):
     torch.cuda.reset_peak_memory_stats(dev)
     sync = torch.cuda.synchronize
     t0 = time.perf_counter()
-    af, b, dom = bench_forms(ct, mesh, phi, V, torch.float32)
+    P = poisson_forms(ct, mesh, phi, V, torch.float32)
+    af, b, dom = P["af"], P["b"], P["dom"]
     sync()
     t1 = time.perf_counter()
     A = fem.assemble_matrix(af)
@@ -2544,6 +2618,333 @@ def unfitted_large_phase(ct, dev, card):
         _phase("unfitted_large", case=f"compound_{n}", **out, **checks, **m,
                max_rel_err_vs_jax_cpu=worst, card=card)
 
+# -- higher-order cut geometry (ROADMAP item 10) ------------------------------
+
+
+def _f64_kw(pkg, device):
+    """(space kwargs, function kwargs) of an f64 problem in ``pkg``: the
+    port takes ``device`` and torch.float64, the reference (x64 on) its
+    defaults."""
+    if not pkg.__name__.endswith("_torch"):
+        return {}, {}
+    import torch
+    return {"device": device}, {"dtype": torch.float64}
+
+
+def _form_dtype(pkg):
+    if not pkg.__name__.endswith("_torch"):
+        return np.float64
+    import torch
+    return torch.float64
+
+
+def _sphere(radius, center=0.0):
+    def level_set(x):
+        return np.sqrt(sum((xi - center) ** 2 for xi in x)) - radius
+    return level_set
+
+
+def ho_mesh_phi(pkg, n, cell_type, phi_degree, level_set, *, device=None,
+                phi_dtype=None):
+    """The [-1, 1]^d mesh of ``cell_type`` (n per side) and the level set
+    interpolated into degree ``phi_degree`` (f64 unless ``phi_dtype``)."""
+    skw, fkw = _f64_kw(pkg, device)
+    if phi_dtype is not None:
+        fkw = {"dtype": phi_dtype}
+    if cell_type in ("triangle", "quadrilateral"):
+        mesh = pkg.mesh.create_rectangle((-1.0, -1.0), (1.0, 1.0), (n, n),
+                                         cell_type=cell_type)
+    else:
+        mesh = pkg.mesh.create_box((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0),
+                                   (n, n, n), cell_type=cell_type)
+    Vphi = pkg.functionspace(mesh, ("Lagrange", phi_degree), **skw)
+    phi = pkg.Function(Vphi, name="phi", **fkw)
+    phi.interpolate(level_set)
+    return mesh, phi
+
+
+def cut_measures(pkg, mesh, phi, order, *, cut_kw=None, backend="straight"):
+    """|{phi < 0}| (the inside cells and the cut rules, by assemble_scalar)
+    and |{phi = 0}| (the sum of the interface weights) in f64, with the
+    rules' nonzero point counts."""
+    import importlib
+    fem = importlib.import_module(pkg.__name__ + ".fem")
+    Measure = importlib.import_module(pkg.__name__ + ".forms.measure").Measure
+    cd = pkg.cut(phi, **(cut_kw or {}))
+    inside = pkg.locate_entities(cd, "phi<0")
+    vol = pkg.runtime_quadrature(cd, "phi<0", order, backend=backend)
+    srf = pkg.runtime_quadrature(cd, "phi=0", order, backend=backend)
+    dx = Measure("dx", domain=mesh, subdomain_data=[inside, vol])
+    volume = float(fem.assemble_scalar(fem.form(1.0 * dx,
+                                                dtype=_form_dtype(pkg))))
+    ws = _host(srf.weights_padded)
+    return dict(volume=volume, area=float(ws.sum()),
+                volume_points=int((_host(vol.weights_padded) != 0).sum()),
+                area_points=int((ws != 0).sum()))
+
+
+def sphere_poisson(pkg, n, cell_type, phi_degree, degree, *, device=None,
+                   **forms_kw):
+    """bench.py's Poisson problem (poisson_forms) on the n^3 box of
+    ``cell_type`` with the bench sphere interpolated into degree
+    ``phi_degree``, in f64, solved directly on the host (assemble_matrix,
+    deactivate_outside, SciPy): its L2 error, true relative residual and
+    sizes."""
+    import importlib
+    fem = importlib.import_module(pkg.__name__ + ".fem")
+    la = importlib.import_module(pkg.__name__ + ".la")
+    skw, _ = _f64_kw(pkg, device)
+    mesh, phi = ho_mesh_phi(pkg, n, cell_type, phi_degree, _sphere(RADIUS),
+                            device=device)
+    V = pkg.functionspace(mesh, ("Lagrange", degree), **skw)
+    P = poisson_forms(pkg, mesh, phi, V, _form_dtype(pkg), **forms_kw)
+    A = fem.assemble_matrix(P["af"])
+    b = np.array(_host(P["b"]), dtype=np.float64)
+    fem.deactivate_outside(A, b, P["dom"])
+    x = la.direct_solve(A, b)
+    P.update(V=V, mesh=mesh, phi=phi)
+    return dict(l2_error=l2_error(pkg, P, x),
+                true_rel_residual=csr_true_rel_residual(A, x, b),
+                dofs=int(V.dim), cut_cells=int(len(P["srf"].parent_map)))
+
+
+def l2_error(pkg, P, x):
+    """||uh - u|| over {phi < 0} of the dofs ``x`` (numpy or a tensor) by
+    assemble_scalar in f64."""
+    import importlib
+    fem = importlib.import_module(pkg.__name__ + ".fem")
+    d = importlib.import_module(pkg.__name__ + ".forms.dsl")
+    _, fkw = _f64_kw(pkg, None)
+    uh = pkg.Function(P["V"], **fkw)
+    if pkg.__name__.endswith("_torch"):
+        import torch
+        uh.x = torch.as_tensor(_host(x), dtype=torch.float64,
+                               device=P["phi"].x.device)
+    else:
+        uh.x = np.asarray(_host(x), dtype=np.float64)
+    err = d.CoefficientExpr(uh) - P["ue"]
+    sq = float(fem.assemble_scalar(fem.form(err * err * P["dxo"],
+                                            dtype=_form_dtype(pkg))))
+    return float(np.sqrt(max(sq, 0.0)))
+
+
+def curved_numbers(pkg, n=N_CURVED_PARITY, device=None):
+    """The bench sphere as a P2 level set on the n^3 tets (f64): volume and
+    area by the curved rules (cut_approximation_order=2) and by the
+    default red-refined ones ('auto': two levels), and the Poisson L2
+    error of bench.py's problem (P2) on the curved rules."""
+    out = {}
+    for name, cut_kw in (("curved", CURVED_CUT), ("auto", {})):
+        mesh, phi = ho_mesh_phi(pkg, n, "tetrahedron", 2, _sphere(RADIUS),
+                                device=device)
+        m = cut_measures(pkg, mesh, phi, 2 * DEGREE, cut_kw=cut_kw)
+        out.update({f"{name}_{k}": v for k, v in m.items()})
+    P = sphere_poisson(pkg, n, "tetrahedron", 2, DEGREE, device=device,
+                       cut_kw=CURVED_CUT)
+    out.update({f"poisson_{k}": v for k, v in P.items()})
+    return out
+
+
+def saye_numbers(pkg, device=None):
+    """Saye's rules (backend="algoim") in f64: the tests/test_saye.py
+    circle on n = 16 quads as a Q1 and a Q2 level set, and the bench
+    sphere as a Q2 level set on n = 8 hexahedra (area or volume, and
+    perimeter or area); and the Poisson L2 error of bench.py's problem
+    (Q1) on the hexahedra with Saye's rules."""
+    out = {}
+    for deg in (1, 2):
+        mesh, phi = ho_mesh_phi(pkg, N_SAYE_QUAD, "quadrilateral", deg,
+                                _sphere(CIRCLE_RADIUS), device=device)
+        m = cut_measures(pkg, mesh, phi, SAYE_ORDER, backend="algoim")
+        out.update({f"quad_q{deg}_{k}": v for k, v in m.items()})
+    mesh, phi = ho_mesh_phi(pkg, N_SAYE_HEX, "hexahedron", 2,
+                            _sphere(RADIUS), device=device)
+    m = cut_measures(pkg, mesh, phi, SAYE_ORDER, backend="algoim")
+    out.update({f"hex_q2_{k}": v for k, v in m.items()})
+    P = sphere_poisson(pkg, N_SAYE_HEX, "hexahedron", 2, 1, device=device,
+                       backend="algoim", order=SAYE_ORDER)
+    out.update({f"poisson_{k}": v for k, v in P.items()})
+    return out
+
+
+def _hold_ho(case, out, want):
+    """Hold the float numbers of a higher-order parity phase to their
+    JAX-CPU pins (HIGHER_ORDER_RTOL relative), the point counts and sizes
+    exactly."""
+    if not want:
+        raise RuntimeError(f"{case}: no JAX-CPU pins")
+    return _hold_pin(case, {k: out[k] for k in want}, want,
+                     HIGHER_ORDER_RTOL)
+
+
+def curved_parity_phase(dev, card):
+    """curved_numbers at n = 8 on the card against the JAX-CPU pins."""
+    t0 = time.perf_counter()
+    out = curved_numbers(_import_port(), device=dev)
+    worst = _hold_ho("curved_parity", out, JAX_CPU_CURVED)
+    _check_residual("curved_parity", [out["poisson_true_rel_residual"]])
+    _phase("curved_parity", n=N_CURVED_PARITY, **out,
+           max_rel_err_vs_jax_cpu=worst, seconds=time.perf_counter() - t0,
+           card=card)
+
+
+def saye_parity_phase(dev, card):
+    """saye_numbers on the card against the JAX-CPU pins."""
+    t0 = time.perf_counter()
+    out = saye_numbers(_import_port(), device=dev)
+    worst = _hold_ho("saye_parity", out, JAX_CPU_SAYE)
+    _check_residual("saye_parity", [out["poisson_true_rel_residual"]])
+    _phase("saye_parity", **out, max_rel_err_vs_jax_cpu=worst,
+           seconds=time.perf_counter() - t0, card=card)
+
+
+def curved_bench_phase(ct, dev, card, sizes=(N_SLICE,)):
+    """bench.py's step with the P2 sphere on the curved path
+    (cut_approximation_order=2) through StencilCutOperator.solve_cg(
+    precond="pallas"): a warm-up and a timed pass at each size, K1
+    launched once per operator apply, a true relative residual <= 1e-6
+    and, at n = 48, the JAX-CPU iteration count exactly. Then, at each
+    size, the default 'auto' cut of the same level set (two
+    red-refinement levels) through rules and forms only: its point count
+    and peak memory. Returns K1's launches in the timed passes."""
+    import torch
+    from cutfemx_tpu_torch import interior_stencil as ist
+    total = 0
+    for n in sizes:
+        t0 = time.perf_counter()
+        mesh, phi, V = setup(ct, n, dev, torch.float32, phi_degree=2)
+        host_setup_s = time.perf_counter() - t0
+        for name in ("warmup", "timed"):
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = ist.launches
+            with count_applies() as applies:
+                run = pipeline(ct, mesh, phi, V, torch.float32,
+                               precond="pallas", cut_kw=CURVED_CUT)
+            launches = ist.launches - before
+            x, op, F = run["x"], run["op"], run["forms"]
+            rel = true_rel_residual(op, run["b"], x)
+            if not (torch.isfinite(x).all() and x.shape == (V.dim,)):
+                raise RuntimeError(f"curved n={n}: non-finite or misshapen "
+                                   "solution")
+            if not rel <= RTOL:
+                raise RuntimeError(f"curved n={n}: true relative residual "
+                                   f"{rel} > {RTOL}")
+            if not launches == applies.n > run["its"]:
+                raise RuntimeError(f"curved n={n}: {launches} K1 launches "
+                                   f"for {applies.n} applies")
+            nums = dict(
+                n=n, dofs=V.dim, phi_dofs=phi.function_space.dim,
+                cut_cells=int(len(F["srf"].parent_map)),
+                volume_points=int((F["vol"].weights_padded != 0).sum()),
+                interface_points=int((F["srf"].weights_padded != 0).sum()),
+                iterations=run["its"], true_rel_residual=rel,
+                launches=launches, applies=applies.n,
+                host_setup_s=host_setup_s, cut_s=F["cut_s"],
+                rules_s=F["rules_s"], forms_s=F["forms_s"],
+                operator_s=run["operator_s"], solve_s=run["solve_s"],
+                total_s=run["total_s"],
+                peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+            if n == N_SLICE:
+                pin = JAX_CPU_ITERATIONS_N48_CURVED
+                if run["its"] != pin:
+                    raise RuntimeError(f"curved: {run['its']} iterations, "
+                                       f"JAX-CPU {pin}")
+                nums.update(jax_cpu_iterations=pin)
+            _phase("curved_bench", **{"pass": name}, **nums, card=card)
+            if name == "timed":
+                total += launches
+            del run, x, op, F
+        curved_auto_pass(ct, dev, n, mesh, phi, V, card)
+        del mesh, phi, V
+    return total
+
+
+def curved_auto_pass(ct, dev, n, mesh, phi, V, card):
+    """The default cut of the P2 level set (cut_approximation='auto': two
+    red-refinement levels) through rules and forms: point counts, stage
+    seconds and peak device memory above what was held at its start."""
+    import torch
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    F = poisson_forms(ct, mesh, phi, V, torch.float32)
+    _phase("curved_auto", n=n, cut_cells=int(len(F["srf"].parent_map)),
+           volume_points=int((F["vol"].weights_padded != 0).sum()),
+           interface_points=int((F["srf"].weights_padded != 0).sum()),
+           volume_points_padded=int(F["vol"].weights_padded.numel()),
+           interface_points_padded=int(F["srf"].weights_padded.numel()),
+           cut_s=F["cut_s"], rules_s=F["rules_s"], forms_s=F["forms_s"],
+           held_before_bytes=held,
+           card_total_bytes=torch.cuda.get_device_properties(dev)
+           .total_memory,
+           peak_mem_gb=(torch.cuda.max_memory_allocated(dev) - held)
+           / 2 ** 30, card=card)
+
+
+def saye_large_phase(ct, dev, card):
+    """A cut Poisson problem on create_box hexahedra at n = 24 and 48: the
+    bench sphere as a Q2 level set, V = Q1, bench.py's Nitsche and
+    ghost-penalty forms on Saye's rules (backend="algoim"), solved by
+    fem.CutOperator.solve_cg with Jacobi in f64. Per size: the box
+    grouping's host seconds and the rules' rest, what the grouping
+    decided, forms, operator and solve seconds, the true relative residual
+    and the L2 error; then the rate, which must be >= 1.8."""
+    import torch
+    from cutfemx_tpu_torch import fem
+    errs = {}
+    for n in N_SAYE_LARGE:
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        mesh, phi = ho_mesh_phi(ct, n, "hexahedron", 2, _sphere(RADIUS),
+                                device=dev)
+        V = ct.functionspace(mesh, ("Lagrange", 1), device=dev)
+        _ = mesh.facets
+        host_setup_s = time.perf_counter() - t0
+        P = poisson_forms(ct, mesh, phi, V, torch.float64, backend="algoim",
+                          order=SAYE_ORDER)
+        P.update(V=V, mesh=mesh, phi=phi)
+        t1 = time.perf_counter()
+        op = fem.CutOperator(P["af"], P["dom"])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        x, its, _ = op.solve_cg(P["b"], rtol=SAYE_CG_RTOL,
+                                maxiter=FLOWER_CG_MAXITER, precond="jacobi")
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        bb = torch.where(op.active, P["b"], 0.0)
+        r = torch.where(op.active, bb - op(x), 0.0)
+        rel = float(torch.linalg.norm(r) / torch.linalg.norm(bb))
+        if not (torch.isfinite(x).all() and int(its) < FLOWER_CG_MAXITER
+                and rel <= FLOWER_TRUE_RESIDUAL):
+            raise RuntimeError(f"saye n={n}: CG {its} iterations, true "
+                               f"relative residual {rel}")
+        errs[n] = l2_error(ct, P, x)
+        sv, ss = P["vol"].saye_stats, P["srf"].saye_stats
+        grouping_s = sv["box_grouping_s"] + ss["box_grouping_s"]
+        _phase("saye_large", n=n, cells=mesh.num_cells, dofs=V.dim,
+               cut_cells=int(len(P["srf"].parent_map)),
+               volume_points=int((P["vol"].weights_padded != 0).sum()),
+               interface_points=int((P["srf"].weights_padded != 0).sum()),
+               volume_points_padded=int(P["vol"].weights_padded.numel()),
+               grouping=sv, host_setup_s=host_setup_s, cut_s=P["cut_s"],
+               rules_s=P["rules_s"], box_grouping_host_s=grouping_s,
+               rules_rest_s=P["rules_s"] - grouping_s,
+               forms_s=P["forms_s"], operator_s=t2 - t1,
+               solve_s=t3 - t2, iterations=int(its),
+               true_rel_residual=rel, l2_error=errs[n],
+               held_before_bytes=held,
+               peak_mem_gb=(torch.cuda.max_memory_allocated(dev) - held)
+               / 2 ** 30, card=card)
+        del P, op, x, mesh, phi, V
+    coarse, fine = N_SAYE_LARGE
+    rate = float(np.log(errs[coarse] / errs[fine]) / np.log(fine / coarse))
+    if not rate >= SAYE_RATE_MIN:
+        raise RuntimeError(f"saye: L2 rate {rate} < {SAYE_RATE_MIN}")
+    _phase("saye_rate", n_coarse=coarse, n_fine=fine, rate=rate, card=card)
+
+
 def main():
     import argparse
     import torch
@@ -2695,6 +3096,27 @@ def main():
            k1_launches=unfitted_k1,
            total_seconds=time.perf_counter() - t_all)
 
+    # higher-order cut geometry: the curved P2 cut on the step (K1 in every
+    # iteration), then Saye's rules on hexahedra and the parity phases
+    # (no K1)
+    t0 = time.perf_counter()
+    ist.launches = 0
+    curved_launches = curved_bench_phase(
+        ct, dev, smi, (N_SLICE, 108) if args.n108 else (N_SLICE,))
+    if curved_launches <= 0:
+        raise RuntimeError("the curved path launched no K1 kernel")
+    before = ist.launches
+    curved_parity_phase(dev, smi)
+    saye_parity_phase(dev, smi)
+    saye_large_phase(ct, dev, smi)
+    saye_k1 = ist.launches - before
+    if saye_k1:
+        raise RuntimeError(f"the Saye and parity phases launched K1 "
+                           f"{saye_k1} times")
+    _phase("higher_order_done", seconds=time.perf_counter() - t0,
+           k1_launches_curved=curved_launches, k1_launches_saye=saye_k1,
+           total_seconds=time.perf_counter() - t_all)
+
     # the main path's shape: the slice's grid and mask in f32, the CG's type
     main_row = next(r for r in k if r["shape"] == "n48_bench"
                     and r["dtype"] == "float32")
@@ -2705,7 +3127,9 @@ def main():
         "launches": launches,
         "launches_by_path": {"jacobi": jacobi_launches, "pallas": launches,
                              "mg": mg_k1, "demos_12a": demos_k1,
-                             "unfitted": unfitted_k1},
+                             "unfitted": unfitted_k1,
+                             "curved_bench": curved_launches,
+                             "saye_and_parity": saye_k1},
         **{key: main_row[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")},
         "bound_by": "bytes",

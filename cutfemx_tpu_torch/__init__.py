@@ -56,6 +56,8 @@ _LEVELSET_API = ("normal", "level_set_value", "surface_normal", "conormal",
 
 def __getattr__(name):
     # Lazy imports keep `import cutfemx_tpu_torch` light and avoid cycles.
+    if name == "cut_function":
+        return _importlib.import_module(".fem", __name__).cut_function
     if name in _LAZY_MODULES:
         mod = _importlib.import_module(f".{name}", __name__)
         globals()[name] = mod

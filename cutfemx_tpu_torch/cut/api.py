@@ -3,12 +3,14 @@ ghost_penalty_facets, create_cut_mesh — the torch counterpart of
 ``cutfemx_tpu.cut.api``.
 
 Classification and facet bands are host numpy; runtime quadrature and the
-cut-mesh marching run on the level set's device. The linear marching path
-is ported: P1 level sets on cell-hosted CutData (compound and union
-selectors too), facet-hosted CutData of any degree (marched on the level
-set's values at the facet vertices), and cut meshes of either. The Saye
-backends and the refined and curved cuts of higher-degree level sets on
-cut cells wait for ROADMAP item 10.
+cut-mesh marching run on the level set's device. Cell-hosted CutData is
+marched on the cells' simplices (compound and union selectors too): a P1
+level set exactly, a higher-degree one on red-refined simplices or, with
+``cut_approximation_order >= 2`` on simplex hosts, by the curved path.
+Facet-hosted CutData of any degree is marched on the level set's values
+at the facet vertices. The ``algoim`` backends take Saye's
+dimension-reduction rules on quadrilateral and hexahedral cells
+(``cut/saye.py``; its box grouping runs on the host).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from .classify import CutData
 from .quadrature import (RuntimeQuadratureRules, _march_parts,
                          compound_volume_rules, facet_interface_rules,
                          facet_volume_rules, interface_rules, volume_rules)
+from .saye import saye_interface_rules, saye_volume_rules
 from .selector import (DOMAIN_INSIDE, DOMAIN_INTERSECTED, DOMAIN_OUTSIDE,
                        parse_selector)
 from .tables import simplex_cut_tables
@@ -74,6 +77,42 @@ def locate_entities(cut_data: CutData, ls_part: str):
     return cut_data.locate(ls_part)
 
 
+def _subdivision_levels(cut_data, phi):
+    """Red-refinement levels of the marching simplices from the cut
+    options: a degree-1 level set is cut exactly at level 0; a
+    higher-degree one gets two levels (at most max_refinement_iterations)
+    unless ``cut_approximation="linear"``."""
+    opts = cut_data.options or {}
+    approx = opts.get("cut_approximation", "auto")
+    if approx in ("linear",):
+        return 0
+    order = int(opts.get("cut_approximation_order", 1))
+    max_iter = int(opts.get("max_refinement_iterations", 8))
+    if phi.function_space.degree <= 1:
+        return 0
+    if approx == "auto" or order > 1:
+        return max(0, min(2, max_iter))
+    return 0
+
+
+def _approx_plan(cut_data, phi, mesh):
+    """(levels, curved) for cell-hosted marching rules.
+
+    ``cut_approximation_order >= 2`` on a simplex host with a
+    higher-degree level set selects the curved path (isoparametric P2
+    parts with polished/projected interface nodes, O(h^3) geometric
+    error) at the base part count; other combinations keep the
+    red-refinement levels of _subdivision_levels."""
+    opts = cut_data.options or {}
+    approx = opts.get("cut_approximation", "auto")
+    order = int(opts.get("cut_approximation_order", 1))
+    if (approx != "linear" and order > 1
+            and phi.function_space.degree > 1
+            and mesh.cell_type in ("triangle", "tetrahedron")):
+        return 0, True
+    return _subdivision_levels(cut_data, phi), False
+
+
 def runtime_quadrature(cut_data: CutData, ls_part: str, order: int, *,
                        backend: str = "straight") -> RuntimeQuadratureRules:
     """Runtime quadrature for the selected part on intersected entities
@@ -81,12 +120,11 @@ def runtime_quadrature(cut_data: CutData, ls_part: str, order: int, *,
     produce the same rules as the strict ones. Compound AND selectors over
     several level sets give the rules of the intersection region by
     re-marching; OR selectors give signed-weight blocks by
-    inclusion-exclusion."""
+    inclusion-exclusion. ``backend="algoim"`` (or ``"algoim_general"``)
+    gives Saye's rules on quadrilateral and hexahedral cells and the
+    polished facet rules on facet-hosted CutData."""
     if backend not in ("straight", "algoim", "algoim_general"):
         raise ValueError(f"unknown backend '{backend}'")
-    if backend != "straight":
-        raise NotImplementedError(
-            f"backend {backend!r} (ROADMAP item 10: Saye quadrature)")
     terms = parse_selector(ls_part)
     if len(terms) > 1:
         return _union_runtime_quadrature(cut_data, terms, order)
@@ -101,28 +139,37 @@ def runtime_quadrature(cut_data: CutData, ls_part: str, order: int, *,
     mesh = cut_data.mesh
     cut_entities = cut_data.hosted_entities[
         cut_data.domains[idx] == DOMAIN_INTERSECTED]
+    side = "<" if op in ("<", "<=") else ">"
+    if backend in ("algoim", "algoim_general"):
+        # Saye's dimension-reduction rules on quad/hex cells; facet-hosted
+        # CutData takes the facet rules with 2D crossings polished onto
+        # the root of the true basis
+        if cut_data.hosted_dim == mesh.tdim - 1:
+            if op == "=":
+                return facet_interface_rules(mesh, phi, cut_entities,
+                                             order, polish=True)
+            return facet_volume_rules(mesh, phi, cut_entities, order,
+                                      side=side)
+        if cut_data.hosted_dim != mesh.tdim:
+            raise NotImplementedError(
+                "algoim backends support cell-hosted rules only")
+        if op == "=":
+            return saye_interface_rules(mesh, phi, cut_entities, order)
+        return saye_volume_rules(mesh, phi, cut_entities, order, side=side)
     if cut_data.hosted_dim == mesh.tdim - 1:
         # facets march the level set's values at their vertices (the
         # reference's rule for every degree)
         if op == "=":
             return facet_interface_rules(mesh, phi, cut_entities, order)
-        side = "<" if op in ("<", "<=") else ">"
         return facet_volume_rules(mesh, phi, cut_entities, order, side=side)
     if cut_data.hosted_dim != mesh.tdim:
         raise NotImplementedError(f"entity dim {cut_data.hosted_dim}")
-    _check_linear(phi)
-    if op in ("<", "<="):
-        return volume_rules(mesh, phi, cut_entities, order, side="<")
-    if op in (">", ">="):
-        return volume_rules(mesh, phi, cut_entities, order, side=">")
-    return interface_rules(mesh, phi, cut_entities, order)
-
-
-def _check_linear(phi):
-    if phi.function_space.degree > 1:
-        raise NotImplementedError(
-            "higher-degree level sets on cut cells: refined and curved "
-            "cuts (ROADMAP item 10)")
+    levels, curved = _approx_plan(cut_data, phi, mesh)
+    if op == "=":
+        return interface_rules(mesh, phi, cut_entities, order,
+                               levels=levels, curved=curved)
+    return volume_rules(mesh, phi, cut_entities, order, side=side,
+                        levels=levels, curved=curved)
 
 
 def _compound_masks(cut_data, clauses):
@@ -154,12 +201,11 @@ def _compound_runtime_quadrature(cut_data, clauses, order, cells=None):
         raise NotImplementedError(
             "compound runtime quadrature requires cell-hosted CutData")
     incl, any_cut, phis, sides = _compound_masks(cut_data, clauses)
-    for phi in phis:
-        _check_linear(phi)
     if cells is None:
         cells = cut_data.hosted_entities[incl & any_cut]
+    levels = max(_subdivision_levels(cut_data, p) for p in phis)
     return compound_volume_rules(mesh, list(zip(phis, sides)), cells,
-                                 order)
+                                 order, levels=levels)
 
 
 def _union_runtime_quadrature(cut_data, terms, order):
@@ -313,10 +359,10 @@ def create_cut_mesh(cut_data: CutData, ls_part: str, mode=None) -> CutMesh:
             pv = torch.as_tensor(coords[:, sub, :], device=dev)
             ph = torch.as_tensor(phiv[:, sub], device=dev)
             if op == "=":
-                X, valid = _march_parts(ph, pv, tdim, SURF)
+                X, valid, _ = _march_parts(ph, pv, tdim, SURF)
             else:
                 sgn = -1.0 if op in (">", ">=") else 1.0
-                X, valid = _march_parts(sgn * ph, pv, tdim, VOL)
+                X, valid, _ = _march_parts(sgn * ph, pv, tdim, VOL)
             parts.add(X.cpu().numpy(), valid.cpu().numpy(), cut_cells, 1)
 
     if mode == "full" and op != "=":
@@ -390,10 +436,10 @@ def _create_facet_cut_mesh(cut_data, idx, op, mode):
                                  device=dev)
         ph = phi.x[torch.as_tensor(fv, dtype=torch.int64, device=dev)]
         if op == "=":
-            X, valid = _march_parts(ph, coords, k, SURF)
+            X, valid, _ = _march_parts(ph, coords, k, SURF)
         else:
             sgn = -1.0 if op in (">", ">=") else 1.0
-            X, valid = _march_parts(sgn * ph, coords, k, VOL)
+            X, valid, _ = _march_parts(sgn * ph, coords, k, VOL)
         parts.add(X.cpu().numpy(), valid.cpu().numpy(), cut_facets, 1)
     if mode == "full" and op != "=":
         want = DOMAIN_INSIDE if op in ("<", "<=") else DOMAIN_OUTSIDE

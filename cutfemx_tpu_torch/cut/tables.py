@@ -26,7 +26,7 @@ from itertools import combinations
 
 import numpy as np
 
-__all__ = ["simplex_cut_tables", "canonical_edges"]
+__all__ = ["simplex_cut_tables", "canonical_edges", "subdivided_simplices"]
 
 
 def canonical_edges(d):
@@ -116,3 +116,54 @@ def simplex_cut_tables(d):
     """(VOL (2^(d+1), max_vol, d+1), SURF (2^(d+1), max_surf, d)) int32."""
     return _TABLES[d]
 
+
+
+def _subdivide_once(simplices):
+    """Red-refine each simplex (coordinates, not topology).
+
+    simplices: (n, d+1, k) vertex coordinate arrays -> (n*2^d, d+1, k)."""
+    out = []
+    for S in simplices:
+        d = S.shape[0] - 1
+        if d == 1:
+            m = 0.5 * (S[0] + S[1])
+            out += [np.stack([S[0], m]), np.stack([m, S[1]])]
+        elif d == 2:
+            m01 = 0.5 * (S[0] + S[1])
+            m02 = 0.5 * (S[0] + S[2])
+            m12 = 0.5 * (S[1] + S[2])
+            out += [np.stack([S[0], m01, m02]),
+                    np.stack([S[1], m01, m12]),
+                    np.stack([S[2], m02, m12]),
+                    np.stack([m01, m12, m02])]
+        else:
+            v0, v1, v2, v3 = S
+            m01 = 0.5 * (v0 + v1)
+            m02 = 0.5 * (v0 + v2)
+            m03 = 0.5 * (v0 + v3)
+            m12 = 0.5 * (v1 + v2)
+            m13 = 0.5 * (v1 + v3)
+            m23 = 0.5 * (v2 + v3)
+            # Bey's 8-subtet rule
+            out += [np.stack([v0, m01, m02, m03]),
+                    np.stack([v1, m01, m12, m13]),
+                    np.stack([v2, m02, m12, m23]),
+                    np.stack([v3, m03, m13, m23]),
+                    np.stack([m01, m02, m13, m03]),
+                    np.stack([m01, m02, m12, m13]),
+                    np.stack([m02, m03, m13, m23]),
+                    np.stack([m02, m12, m13, m23])]
+    return np.stack(out)
+
+
+def subdivided_simplices(base_verts, levels):
+    """Recursively red-refine simplices given by coordinate arrays.
+
+    base_verts: (n, d+1, k) -> (n * (2^d)^levels, d+1, k). The marching of
+    a higher-degree level set on these re-evaluates it through its true
+    basis at every sub-simplex vertex, so the geometric error drops to
+    O((h/2^levels)^2)."""
+    S = np.asarray(base_verts, dtype=np.float64)
+    for _ in range(levels):
+        S = _subdivide_once(S)
+    return S

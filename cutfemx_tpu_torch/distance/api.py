@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..functionspace import Function, FunctionSpace
+from ..geometry import pullback
 from .fim import FMMOptions, eikonal_solve
 from .stl import (TriSoup, build_cell_triangle_map, distribute_stl,
                   point_segment_distance, point_triangle_distance, read_stl)
@@ -546,13 +547,15 @@ def _pullback_simplex(coords, x):
 def _cell_data(f, cells, points_phys):
     V = f.function_space
     mesh = V.mesh
-    if not mesh.ref_cell.is_simplex:
-        raise NotImplementedError(
-            "non-affine pullback (ROADMAP item 10: geometry breadth)")
     dev = points_phys.device
     coords = torch.as_tensor(mesh.cell_vertex_coords[cells], dtype=F64,
                              device=dev)
-    ref = _pullback_simplex(coords, points_phys.to(F64))
+    x = points_phys.to(F64)
+    if mesh.ref_cell.is_simplex:
+        ref = _pullback_simplex(coords, x)
+    else:
+        ref = torch.func.vmap(lambda c, p: pullback(
+            mesh.cell_type, c, p[None])[0])(coords, x)
     dofs = f.x.to(device=dev, dtype=F64)[
         torch.as_tensor(V.dofmap[cells], dtype=torch.int64, device=dev)]
     return V, mesh, coords, ref, dofs

@@ -195,7 +195,8 @@ def extension_quadrature(V, cut_data: CutData,
                          quadrature_degree: int) -> ExtensionQuadrature:
     """The standard full-cell rule on each rooted bad cell, and the same
     physical points in the root's reference coordinates, on V's device in
-    f64 (an affine pullback: simplex cells; a non-affine cell raises)."""
+    f64 (the affine pullback on simplices, Newton's on quads and
+    hexahedra)."""
     mesh = cut_data.mesh
     dt, dev = torch.float64, V.device
     bad = aggregation.ill_posed_cells

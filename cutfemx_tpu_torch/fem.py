@@ -1108,6 +1108,44 @@ def zero_block_rows(A_blocks):
     return out
 
 
+def cut_function(u, cut_mesh):
+    """Interpolate a background Function onto a cut mesh: a P1 Function on
+    ``cut_mesh.mesh`` (on u's device, in u's dtype) whose vertex values
+    are u's. Each cut-mesh vertex lies in its cell's parent background
+    cell; it is pulled back there (Newton's map on quads and hexahedra)
+    and u's basis is evaluated at it."""
+    from .cut.api import CutMesh
+    from .functionspace import Function, FunctionSpace
+    from .geometry import pullback
+
+    if not isinstance(cut_mesh, CutMesh) or cut_mesh.mesh is None:
+        raise ValueError("cut_function requires a non-empty CutMesh")
+    V = u.function_space
+    bg = V.mesh
+    vis = cut_mesh.mesh
+    dt, dev = u.x.dtype, u.x.device
+    Vout = FunctionSpace(vis, ("Lagrange", 1), shape=V.value_shape,
+                         device=dev)
+    out = Function(Vout, name=u.name, dtype=dt)
+    # cut-mesh vertices are duplicated per cell, so a plain per-cell
+    # evaluation covers every dof
+    parents = cut_mesh.parent_index
+    vis_coords = torch.as_tensor(vis.cell_vertex_coords, dtype=dt,
+                                 device=dev)                # (E, m, gdim)
+    par_coords = torch.as_tensor(bg.cell_vertex_coords[parents], dtype=dt,
+                                 device=dev)
+    ref = torch.func.vmap(lambda c, x: pullback(bg.cell_type, c, x))(
+        par_coords, vis_coords)                             # (E, m, tdim)
+    tab = V.element.tabulate(ref)                           # (E, m, nd)
+    idx = torch.as_tensor(V.dofmap[parents], dtype=torch.int64, device=dev)
+    dofs = u.x.reshape(-1, V.bs)[idx]                       # (E, nd, bs)
+    vals = torch.einsum("emn,enb->emb", tab, dofs)          # (E, m, bs)
+    x = torch.zeros((Vout.num_scalar_dofs, Vout.bs), dtype=dt, device=dev)
+    x[torch.as_tensor(Vout.dofmap, dtype=torch.int64, device=dev)] = vals
+    out.x = x.reshape(-1)
+    return out
+
+
 # -- element-matrix operators ------------------------------------------------
 
 

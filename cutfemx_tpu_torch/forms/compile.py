@@ -14,8 +14,9 @@ cell:            coords (nv, gdim); points (Q, tdim) [runtime: per entity],
 exterior_facet:  coords (nv, gdim); local_facet (); facet-ref rule shared,
                  or runtime cell-ref points + physical weights
 interior_facet:  coords (2, nv, gdim); local_facet (2,); '+' side maps the
-                 shared facet rule, '-' side is the affine pullback of the
-                 same physical points
+                 shared facet rule, '-' side is the pullback of the same
+                 physical points (affine on simplices, Newton's map on
+                 quadrilaterals and hexahedra)
 
 Weight convention: runtime quadrature weights are PHYSICAL (they already
 include the volume or surface measure), mirroring how the reference's

@@ -14,8 +14,32 @@ import torch
 from .cells import reference_cell
 from .elements import lagrange_element
 
-__all__ = ["pullback", "pullback_affine", "gram_det", "map_facet_points",
-           "facet_reference_normals", "take_row"]
+__all__ = ["coordinate_element", "jacobian", "pushforward", "pullback",
+           "pullback_affine", "pullback_newton", "gram_det", "inv_or_pinv",
+           "reference_facet_map", "map_facet_points",
+           "facet_reference_normals", "physical_facet_normal", "take_row"]
+
+
+def coordinate_element(cell_type):
+    return lagrange_element(cell_type, 1)
+
+
+def jacobian(cell_type, coords, points):
+    """J = dx/dxi at each point.
+
+    coords: (nv, gdim) cell vertex coords; points: (Q, tdim).
+    Returns (Q, gdim, tdim).
+    """
+    el = coordinate_element(cell_type)
+    dphi = el.tabulate_grad(points)  # (Q, nv, tdim)
+    return torch.einsum("vg,qvt->qgt", coords, dphi)
+
+
+def pushforward(cell_type, coords, points):
+    """Map reference points (Q, tdim) to physical (Q, gdim)."""
+    el = coordinate_element(cell_type)
+    phi = el.tabulate(points)  # (Q, nv)
+    return torch.einsum("qv,vg->qg", phi, coords)
 
 
 def pullback_affine(cell_type, coords, xphys):
@@ -30,12 +54,30 @@ def pullback_affine(cell_type, coords, xphys):
     return torch.einsum("tg,qg->qt", K, xphys - origin)
 
 
+def pullback_newton(cell_type, coords, xphys, iters=8):
+    """Inverse of the (multilinear) geometry map by ``iters`` Newton steps
+    from the reference centroid. The step count is fixed (no
+    data-dependent exit), so the function runs under torch.func.vmap.
+
+    coords: (nv, gdim); xphys: (Q, gdim) -> (Q, tdim)."""
+    cell = reference_cell(cell_type)
+    el = coordinate_element(cell_type)
+    xi = torch.as_tensor(cell.vertices.mean(axis=0), dtype=xphys.dtype,
+                         device=xphys.device).expand(xphys.shape[0],
+                                                     cell.tdim)
+    for _ in range(iters):
+        x = torch.einsum("qv,vg->qg", el.tabulate(xi), coords)
+        J = torch.einsum("vg,qvt->qgt", coords, el.tabulate_grad(xi))
+        xi = xi + torch.einsum("qtg,qg->qt", inv_or_pinv(J), xphys - x)
+    return xi
+
+
 def pullback(cell_type, coords, xphys):
-    """Inverse geometry map; the slice has simplex cells only."""
-    if not reference_cell(cell_type).is_simplex:
-        raise NotImplementedError(
-            "non-affine pullback (ROADMAP item 10: geometry breadth)")
-    return pullback_affine(cell_type, coords, xphys)
+    """General inverse geometry map: exact affine solve for simplices,
+    Newton otherwise."""
+    if reference_cell(cell_type).is_simplex:
+        return pullback_affine(cell_type, coords, xphys)
+    return pullback_newton(cell_type, coords, xphys)
 
 
 def gram_det(J):
@@ -61,6 +103,14 @@ def take_row(table, idx):
 
 
 # -- facet embedding ---------------------------------------------------------
+
+
+def reference_facet_map(cell_type):
+    """(nfacets, nvf, tdim) reference coordinates of each facet's
+    vertices: a facet-reference point maps into the cell reference
+    through the facet's P1 map over them (bilinear for the quadrilateral
+    facets of hexahedra)."""
+    return reference_cell(cell_type).facet_vertices_coords()
 
 
 def map_facet_points(cell_type, local_facet, facet_points, fverts_table):
@@ -99,3 +149,13 @@ def facet_reference_normals(cell_type):
             nv = -nv
         n[f] = nv / np.linalg.norm(nv)
     return n
+
+
+def physical_facet_normal(cell_type, K, ref_normal):
+    """Outward physical normal from reference normal: n = K^T n_ref / |.|.
+
+    K: (Q, tdim, gdim) inverse Jacobian; ref_normal: (tdim,).
+    """
+    n = torch.einsum("qtg,t->qg", K, torch.as_tensor(
+        ref_normal, dtype=K.dtype, device=K.device))
+    return n / torch.linalg.norm(n, dim=-1, keepdim=True)

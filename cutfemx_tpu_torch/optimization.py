@@ -38,6 +38,7 @@ from .forms.dsl import (CoefficientExpr, TestFunction, TrialFunction, dot,
                         grad, inner, sqrt)
 from .forms.measure import Measure
 from .functionspace import Function, functionspace
+from .geometry import pullback
 
 __all__ = [
     "phase", "ProfileWriter", "ConvergenceWriter",
@@ -497,15 +498,28 @@ def _affine_maps(cvx):
     return cvx[:, 0, :], K
 
 
+def _reference_coords(mesh, cells, x):
+    """Reference coordinates (n, tdim) of physical points x (n, gdim) in
+    the given cells (host numpy): the affine inverse on simplices, the
+    general pullback (in f64, batched by torch.func.vmap) otherwise."""
+    cvx = np.asarray(mesh.cell_vertex_coords)[cells]
+    if mesh.ref_cell.is_simplex:
+        origin, K = _affine_maps(cvx)
+        return np.einsum("ntg,ng->nt", K, x - origin)
+    if len(x) == 0:
+        return np.zeros((0, mesh.tdim))
+    xi = torch.func.vmap(
+        lambda c, p: pullback(mesh.cell_type, c, p[None])[0])(
+        torch.as_tensor(cvx, dtype=F64), torch.as_tensor(x, dtype=F64))
+    return xi.numpy()
+
+
 def locate_cells(mesh, points, pad: float = 1e-10):
     """Cells containing each physical point: of the cells whose padded box
     holds it and whose reference coordinates put it inside (to 1e-8), the
     one of smallest index; points in no cell take the cell of nearest
     midpoint. Broad phase: uniform bins over the cell boxes, joined to the
     points by a sort (vectorized). points: (N, gdim)."""
-    if not mesh.ref_cell.is_simplex:
-        raise NotImplementedError(
-            "non-affine pullback (ROADMAP item 10: geometry breadth)")
     pts = np.asarray(points, float)
     verts = np.asarray(mesh.vertices)
     cvx = np.asarray(mesh.cell_vertex_coords)  # (nc, nv, gdim)
@@ -543,9 +557,11 @@ def locate_cells(mesh, points, pad: float = 1e-10):
     x = pts[P]
     ok = ((lo[C] - pad <= x) & (x <= hi[C] + pad)).all(axis=1)
     P, C, x = P[ok], C[ok], x[ok]
-    origin, K = _affine_maps(cvx)
-    xi = np.einsum("ntg,ng->nt", K[C], x - origin[C])
-    inside = (xi >= -1e-8).all(axis=1) & (xi.sum(axis=1) <= 1.0 + 1e-8)
+    xi = _reference_coords(mesh, C, x)
+    if mesh.ref_cell.is_simplex:
+        inside = (xi >= -1e-8).all(axis=1) & (xi.sum(axis=1) <= 1.0 + 1e-8)
+    else:
+        inside = ((xi >= -1e-8) & (xi <= 1.0 + 1e-8)).all(axis=1)
     out = np.full(pts.shape[0], ncells, dtype=np.int64)
     np.minimum.at(out, P[inside], C[inside])
     missing = np.flatnonzero(out == ncells)
@@ -565,8 +581,7 @@ def evaluate_at_points(f: Function, points, cells=None):
     if cells is None:
         cells = locate_cells(mesh, pts)
     cells = np.asarray(cells, np.int64)
-    origin, K = _affine_maps(np.asarray(mesh.cell_vertex_coords)[cells])
-    xi = np.einsum("ntg,ng->nt", K, pts - origin)
+    xi = _reference_coords(mesh, cells, pts)
     tab = np.asarray(V.element.tabulate(xi))  # (N, ndof_cell)
     cdofs = np.asarray(V.dofmap)[cells]
     vals = _host(f.x)

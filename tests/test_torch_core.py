@@ -29,13 +29,15 @@ N_BOX, RADIUS, GAMMA, DEGREE = 8, 0.46, 40.0, 2
 
 
 def bench_problem(pkg, fdtype, n=N_BOX, device=None, phi_dtype=None,
-                  degree=DEGREE, level_set=None, radius=RADIUS, rhs=True):
+                  degree=DEGREE, level_set=None, radius=RADIUS, rhs=True,
+                  phi_degree=1, cut_kw=None):
     """bench.py's moving-domain step up to assembly, in ``pkg``
     (cutfemx_tpu or cutfemx_tpu_torch). The port gets ``device`` and
     ``phi_dtype``; the level set (the bench's sphere of ``radius`` unless
-    ``level_set`` gives another) and all inputs come from the same numpy
-    expressions in both packages. ``rhs=False`` leaves the load vector
-    unassembled (``b`` is None)."""
+    ``level_set`` gives another, interpolated into degree ``phi_degree``)
+    and all inputs come from the same numpy expressions in both packages.
+    ``cut_kw`` goes to ``cut`` (e.g. ``cut_approximation_order=2``).
+    ``rhs=False`` leaves the load vector unassembled (``b`` is None)."""
     if level_set is None:
         def level_set(x):
             return np.sqrt(x[0] ** 2 + x[1] ** 2 + x[2] ** 2) - radius
@@ -46,11 +48,11 @@ def bench_problem(pkg, fdtype, n=N_BOX, device=None, phi_dtype=None,
     space_kw = {} if device is None else {"device": device}
     fn_kw = {} if phi_dtype is None else {"dtype": phi_dtype}
     mesh = pkg.mesh.create_box((-1, -1, -1), (1, 1, 1), (n, n, n))
-    Vphi = pkg.functionspace(mesh, ("Lagrange", 1), **space_kw)
+    Vphi = pkg.functionspace(mesh, ("Lagrange", phi_degree), **space_kw)
     phi = pkg.Function(Vphi, name="phi", **fn_kw)
     phi.interpolate(level_set)
     V = pkg.functionspace(mesh, ("Lagrange", degree), **space_kw)
-    cd = pkg.cut(phi)
+    cd = pkg.cut(phi, **(cut_kw or {}))
     inside = pkg.locate_entities(cd, "phi<0")
     vol = pkg.runtime_quadrature(cd, "phi<0", 2 * degree)
     srf = pkg.runtime_quadrature(cd, "phi=0", 2 * degree)

@@ -236,11 +236,11 @@ def test_runtime_ds_and_dS_integrals():
 
 
 def test_error_contract(line_pair):
-    """An unknown backend is a ValueError, as in the reference; the Saye
-    backends, refined cuts of higher-degree level sets on cut cells and
-    cut meshes of compound selectors raise NotImplementedError (the first
-    two name their ROADMAP item); a side-aware field off a dS measure is
-    a ValueError."""
+    """An unknown backend is a ValueError, as in the reference; so are the
+    Saye backends on simplex host cells; cut meshes of compound selectors
+    raise NotImplementedError; a side-aware field off a dS measure is a
+    ValueError. A P2 level set on cut cells is cut on red-refined
+    simplices (the line's area comes out exactly)."""
     cdj, cdt = line_pair
     for cd, pkg in ((cdj, cj), (cdt, ct)):
         with pytest.raises(ValueError, match="unknown backend"):
@@ -248,14 +248,17 @@ def test_error_contract(line_pair):
         with pytest.raises(NotImplementedError):
             pkg.create_cut_mesh(cd, "phi<0 and cap<0")
     for backend in ("algoim", "algoim_general"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+        with pytest.raises(ValueError, match="quadrilateral/hexahedron"):
             ct.runtime_quadrature(cdt, "phi<0", 2, backend=backend)
     mesh = cdt.mesh
     V2 = ct.functionspace(mesh, ("Lagrange", 2), device="cpu")
     phi2 = ct.Function(V2, name="phi", dtype=torch.float64)
     phi2.interpolate(lambda x: x[1] - 0.26)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        ct.runtime_quadrature(ct.cut(phi2), "phi<0", 2)
+    cd2 = ct.cut(phi2)
+    rules = ct.runtime_quadrature(cd2, "phi<0", 2)
+    inside = ct.locate_entities(cd2, "phi<0")
+    area = float(rules.weights_padded.sum()) + len(inside) / (2 * 4 ** 2)
+    assert abs(area - 0.26) < TOL
     fem, d, Measure = _forms(ct)
     phi = cdt.level_sets[0]
     mu = ct.conormal(ct.normal(phi))
