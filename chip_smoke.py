@@ -138,7 +138,24 @@ Phases, each printing one line of numbers:
     solved by fem.CutOperator.solve_cg with Jacobi in f64: the box
     grouping's host seconds and what it decided, the rules', forms' and
     solve's seconds, the true residual, the L2 errors and their rate
-    (>= 1.8).
+    (>= 1.8);
+26. surface_io: bench.py's n = 48 host setup built, saved with
+    io.save_setup_cache and loaded back onto the card with
+    io.load_setup_cache, then the "pallas" step on the built and on the
+    loaded objects (each from a cleared build cache): the loaded step must
+    take 87 iterations (JAX-CPU's), reach a true relative residual
+    <= 1e-6, launch K1 once per operator apply and give the built step's
+    solution bitwise (setup seconds built and loaded, the cache's bytes,
+    the step by stage); on its rules the compact views (total_points, a
+    lazy physical_points) and StencilCutOperator with a numpy b (equal to
+    the tensor call bitwise); tests/test_complex_assembly.py's Helmholtz
+    form at n = 64 against its real and imaginary parts (1e-13) and a
+    complex coefficient on runtime against standard rules (1e-12), a
+    complex la.cg on a Hermitian positive-definite system against SciPy's
+    spsolve (1e-9); tests/test_vertex_ridge.py's nine cases against their
+    exact values (1e-12); petsc's assembly and deactivate_outside equal
+    fem's on the n = 64 flower; every part inside a profiling.Timer span,
+    all of them in profiling.timings(). No K1 outside the steps.
 The 2D phases print which stages ran on the host (classification, the
 CSR matrices, the boundary conditions and the direct solves: host code by
 the reference's design). K1 must show 0 launches on the mg, geometry,
@@ -153,8 +170,8 @@ preconditioner of ``solve_cg`` on the n = 48 step, cold and adopting (the
 numbers behind its 'auto' rule; 'asm-fold2' is left out, it is the path of
 'pallas'). ``--n72``, ``--n90`` and ``--n108`` run the stack, 'asm' and 'jacobi' at
 n = 72 (3,048,625 dofs), n = 90 (5,929,741 dofs) and n = 108 (10,218,313
-dofs), cold and adopting, and the curved step and its 'auto' cut at
-n = 108 too.
+dofs), cold and adopting, and the curved step, its 'auto' cut and the
+setup-cache step (105 iterations) at n = 108 too.
 None is in the default run's time.
 
 Then one JSON line of the kernels, the nvidia-smi line, and, last, the JSON
@@ -484,6 +501,20 @@ JAX_CPU_SAYE = {
     "hex_q2_volume": 0.4075315452288836, "hex_q2_area": 2.659325059500886,
     "poisson_l2_error": 0.005115690296689805, "poisson_dofs": 729,
     "poisson_cut_cells": 56}
+
+# The rest of the single-card surface (io's setup cache, the compact rule
+# views, numpy vectors into StencilCutOperator, complex forms, vertex and
+# ridge measures, petsc and profiling). The setup-cache step must take the
+# reference's "asm-fold2" count exactly: JAX-CPU's 87 at n = 48 (above),
+# and at n = 108 the reference's own bench row (BENCH_r05.json, 105
+# iterations), which the port's n = 108 stack passes have also taken.
+SETUP_CACHE_ITERATIONS = {N_SLICE: JAX_CPU_ITERATIONS_N48_FOLD2, 108: 105}
+N_HELMHOLTZ, N_COMPLEX_RUNTIME, N_HERMITIAN = 64, 32, 64
+COMPLEX_SPLIT_TOL = 1e-13       # tests/test_complex_assembly.py's
+COMPLEX_RUNTIME_TOL = 1e-12
+HERMITIAN_CG_RTOL, HERMITIAN_X_RTOL = 1e-12, 1e-9
+VERTEX_RIDGE_TOL = 1e-12
+N_PETSC_FLOWER = 64
 
 
 def _phase(phase, **numbers):
@@ -904,7 +935,7 @@ def stack_pass(ct, dev, mesh, phi, V, name, n, precond="pallas"):
     if precond == "pallas":
         nums["bytes_per_it"] = op.traffic_model()["bytes_per_it"]
     _phase("stack", **{"pass": name}, **nums)
-    return dict(nums, op=op, b=run["b"])
+    return dict(nums, op=op, b=run["b"], x=x, forms=run["forms"])
 
 
 def stage_times(op, b, its, launches):
@@ -2945,6 +2976,420 @@ def saye_large_phase(ct, dev, card):
     _phase("saye_rate", n_coarse=coarse, n_fine=fine, rate=rate, card=card)
 
 
+# -- the rest of the single-card surface (io, petsc, profiling, complex
+#    forms, vertex and ridge measures) --------------------------------------
+
+
+def setup_cache_pass(ct, dev, n, card):
+    """bench.py's host setup at ``n`` built, saved by io.save_setup_cache
+    and loaded back onto the card by io.load_setup_cache; then the
+    'pallas' step (each from a cleared build cache) on the built objects
+    and on the loaded ones. Gates: the loaded step takes the reference's
+    count exactly, at a true relative residual <= RTOL, with one K1 launch
+    per operator apply, and its solution equals the built step's bitwise.
+    Returns the loaded step's pass and its K1 launches (counted from 0
+    just before the step and read just after it, before its true-residual
+    check)."""
+    import tempfile
+    import torch
+    from cutfemx_tpu_torch import interior_stencil as ist
+    from cutfemx_tpu_torch import io as cio
+    from cutfemx_tpu_torch import stencil as st
+    t0 = time.perf_counter()
+    mesh, phi, V = setup(ct, n, dev, torch.float32)
+    built_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        cio.save_setup_cache(d, mesh, [phi.function_space, V])
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(d, f))
+                     for f in os.listdir(d))
+        t0 = time.perf_counter()
+        loaded = cio.load_setup_cache(d, device=dev)
+        if loaded is None:
+            raise RuntimeError(f"n={n}: load_setup_cache found no cache")
+        mesh2, (Vphi2, V2) = loaded
+        phi2 = ct.Function(Vphi2, name="phi", dtype=torch.float32)
+        phi2.interpolate(_sphere(RADIUS))
+        loaded_s = time.perf_counter() - t0
+    for got, want in ((Vphi2, phi.function_space), (V2, V)):
+        if not (got.device == want.device
+                and np.array_equal(got.dofmap, want.dofmap)
+                and got.dim == want.dim):
+            raise RuntimeError(f"n={n}: a loaded space differs from the "
+                               f"built one (device {got.device})")
+    if not torch.equal(phi2.x, phi.x):
+        raise RuntimeError(f"n={n}: the level set on the loaded mesh "
+                           "differs from the built one")
+    st._BUILD_CACHE.clear()
+    built = stack_pass(ct, dev, mesh, phi, V, "setup_cache_built", n)
+    x_built, its_built = built["x"], built["iterations"]
+    del built, mesh, phi, V
+    st._BUILD_CACHE.clear()
+    ist.launches = 0
+    run = stack_pass(ct, dev, mesh2, phi2, V2, "setup_cache_loaded", n)
+    launches = run["launches"]          # the step's own, one per apply
+    want = SETUP_CACHE_ITERATIONS[n]
+    if not run["iterations"] == its_built == want:
+        raise RuntimeError(f"n={n}: the loaded step took {run['iterations']}"
+                           f" iterations, the built one {its_built}, the "
+                           f"reference {want}")
+    if not torch.equal(run["x"], x_built):
+        diff = float((run["x"] - x_built).abs().max())
+        raise RuntimeError(f"n={n}: the loaded step's solution differs "
+                           f"from the built one's (max |dx| {diff})")
+    _phase("surface_io", part="setup_cache", n=n, dofs=V2.dim,
+           host_setup_built_s=built_s, cache_save_s=save_s,
+           host_setup_loaded_s=loaded_s, cache_bytes=nbytes,
+           iterations=run["iterations"], reference_iterations=want,
+           true_rel_residual=run["true_rel_residual"],
+           k1_launches=launches, applies=run["applies"],
+           forms_s=run["forms_s"], operator_s=run["operator_s"],
+           solve_s=run["solve_s"], build_s=run["build_s"], cg_s=run["cg_s"],
+           total_s=run["total_s"], bitwise_equal_to_built=True, card=card)
+    return run, launches
+
+
+def c5_c6_checks(run, card):
+    """On the loaded n = 48 step: the compact views of its volume and
+    interface rules (``total_points`` = the nonzero weights, a lazy
+    ``physical_points``) and StencilCutOperator taking a numpy right-hand
+    side (solve_cg and the apply equal the tensor calls bitwise)."""
+    import torch
+    out = {}
+    for name in ("vol", "srf"):
+        rules = run["forms"][name]
+        nonzero = int((rules.weights_padded != 0).sum())
+        lazy = rules._physical_points is None
+        pts = rules.with_physical_points().physical_points
+        if not (lazy and rules.total_points == nonzero == pts.shape[1]
+                and pts.shape[0] == 3 and np.isfinite(pts).all()
+                and rules.offsets[-1] == nonzero):
+            raise RuntimeError(f"c5: {name} rules: total_points "
+                               f"{rules.total_points}, nonzero weights "
+                               f"{nonzero}, physical_points {pts.shape}, "
+                               f"lazy {lazy}")
+        out[f"{name}_total_points"] = nonzero
+        out[f"{name}_max_radius"] = float(np.linalg.norm(pts, axis=0).max())
+    op, b = run["op"], run["b"]
+    x_t, it_t, _ = op.solve_cg(b, rtol=RTOL, maxiter=MAXITER,
+                               precond="pallas")
+    x_n, it_n, _ = op.solve_cg(b.cpu().numpy(), rtol=RTOL, maxiter=MAXITER,
+                               precond="pallas")
+    y_t, y_n = op(x_t), op(x_t.cpu().numpy())
+    if not (it_t == it_n and torch.equal(x_t, x_n) and torch.equal(y_t, y_n)):
+        raise RuntimeError(f"c6: a numpy b gives {it_n} iterations against "
+                           f"{it_t}, or another solution or apply")
+    _phase("surface_io", part="c5_c6", **out, solve_iterations=int(it_t),
+           numpy_b_bitwise=True, card=card)
+
+
+def _complex_kw(pkg, device):
+    """(complex128 dtype, host array -> the package's vector) of ``pkg``:
+    torch's on ``device`` for the port, numpy's for the reference (which
+    takes numpy arrays and dtypes)."""
+    if not pkg.__name__.endswith("_torch"):
+        return np.complex128, np.asarray
+    import torch
+    return torch.complex128, lambda a: torch.as_tensor(a, device=device)
+
+
+def complex_cases(pkg, n_helm, n_runtime, device=None):
+    """tests/test_complex_assembly.py's two cases in ``pkg`` (x64 for the
+    reference; the port on ``device``), at sizes ``n_helm`` and
+    ``n_runtime``: the complex Helmholtz matrix with its real and
+    imaginary parts assembled as real forms, and a complex P2 coefficient
+    through full-cell runtime rules and through standard rules (matrix,
+    vector, scalar). Host SciPy matrices and numpy arrays."""
+    import importlib
+    fem = importlib.import_module(pkg.__name__ + ".fem")
+    d = importlib.import_module(pkg.__name__ + ".forms.dsl")
+    Measure = importlib.import_module(pkg.__name__ + ".forms.measure").Measure
+    full_cell_rules = importlib.import_module(
+        pkg.__name__ + ".cut.quadrature").full_cell_rules
+    skw, _ = _f64_kw(pkg, device)
+    cdt, to_dev = _complex_kw(pkg, device)
+    rkw = skw
+    mesh = pkg.mesh.create_unit_square(n_helm)
+    V = pkg.functionspace(mesh, ("Lagrange", 1), **skw)
+    u, v = d.TrialFunction(V), d.TestFunction(V)
+    dxs = Measure("dx", domain=mesh, metadata={"quadrature_degree": 2})
+    k2 = 1.0 + 2.0j
+    out = {"helmholtz": fem.assemble_matrix(fem.form(
+        d.inner(d.grad(u), d.grad(v)) * dxs - k2 * u * v * dxs,
+        dtype=cdt)).to_scipy()}
+    real = _form_dtype(pkg)
+    out["helmholtz_real"] = fem.assemble_matrix(fem.form(
+        d.inner(d.grad(u), d.grad(v)) * dxs - 1.0 * u * v * dxs,
+        dtype=real)).to_scipy()
+    out["helmholtz_imag"] = fem.assemble_matrix(fem.form(
+        -2.0 * u * v * dxs, dtype=real)).to_scipy()
+
+    mesh = pkg.mesh.create_unit_square(n_runtime)
+    V = pkg.functionspace(mesh, ("Lagrange", 2), **skw)
+    u, v = d.TrialFunction(V), d.TestFunction(V)
+    rules = full_cell_rules(mesh, np.arange(mesh.num_cells), 4, **rkw)
+    dxr = Measure("dx", domain=mesh, subdomain_data=rules,
+                  metadata={"quadrature_degree": 4})
+    dxs = Measure("dx", domain=mesh, metadata={"quadrature_degree": 4})
+    f = pkg.Function(V, dtype=cdt)
+    f.x = to_dev(np.random.default_rng(0).standard_normal(V.dim)
+                 + 1j * np.random.default_rng(1).standard_normal(V.dim))
+    c = d.CoefficientExpr(f)
+    for tag, dxm in (("runtime", dxr), ("standard", dxs)):
+        out[f"{tag}_matrix"] = fem.assemble_matrix(
+            fem.form(c * u * v * dxm, dtype=cdt)).to_scipy()
+        out[f"{tag}_vector"] = np.array(_host(fem.assemble_vector(
+            fem.form(c * v * dxm, dtype=cdt))))
+        out[f"{tag}_scalar"] = complex(_host(fem.assemble_scalar(
+            fem.form(c * dxm, dtype=cdt))))
+    return out
+
+
+def hold_complex_cases(out):
+    """The gates of tests/test_complex_assembly.py on complex_cases'
+    output: -> the largest error of each comparison."""
+    A = out["helmholtz"]
+    errs = dict(
+        helmholtz_real=abs(A.real - out["helmholtz_real"]).max(),
+        helmholtz_imag=abs(A.imag - out["helmholtz_imag"]).max(),
+        runtime_matrix=abs(out["runtime_matrix"]
+                           - out["standard_matrix"]).max(),
+        runtime_vector=np.abs(out["runtime_vector"]
+                              - out["standard_vector"]).max(),
+        runtime_scalar=abs(out["runtime_scalar"] - out["standard_scalar"]))
+    tols = dict(helmholtz_real=COMPLEX_SPLIT_TOL,
+                helmholtz_imag=COMPLEX_SPLIT_TOL,
+                runtime_matrix=COMPLEX_RUNTIME_TOL,
+                runtime_vector=COMPLEX_SPLIT_TOL,
+                runtime_scalar=COMPLEX_SPLIT_TOL)
+    errs = {k: float(v) for k, v in errs.items()}
+    for k, err in errs.items():
+        if not err <= tols[k]:
+            raise RuntimeError(f"complex {k}: {err} > {tols[k]}")
+    return errs
+
+
+def hermitian_cg(pkg, n, device=None):
+    """A Hermitian positive-definite complex system on the n x n unit
+    square in P1: stiffness + mass + 0.5i (u_x v - u v_x) (real part
+    symmetric, imaginary part antisymmetric; the skew term is bounded by
+    half the real part), solved by ``la.cg`` on the element-batched
+    CutOperator to rtol HERMITIAN_CG_RTOL from a seeded right-hand side.
+    -> (host CSR, b, x, iterations)."""
+    import importlib
+    fem = importlib.import_module(pkg.__name__ + ".fem")
+    la = importlib.import_module(pkg.__name__ + ".la")
+    d = importlib.import_module(pkg.__name__ + ".forms.dsl")
+    Measure = importlib.import_module(pkg.__name__ + ".forms.measure").Measure
+    skw, _ = _f64_kw(pkg, device)
+    cdt, to_dev = _complex_kw(pkg, device)
+    mesh = pkg.mesh.create_unit_square(n)
+    V = pkg.functionspace(mesh, ("Lagrange", 1), **skw)
+    u, v = d.TrialFunction(V), d.TestFunction(V)
+    dx = Measure("dx", domain=mesh)
+    a = (d.inner(d.grad(u), d.grad(v)) + u * v
+         + 0.5j * (d.grad(u)[0] * v - u * d.grad(v)[0])) * dx
+    af = fem.form(a, dtype=cdt)
+    rng = np.random.default_rng(3)
+    b = rng.standard_normal(V.dim) + 1j * rng.standard_normal(V.dim)
+    x, its, _ = la.cg(fem.CutOperator(af), to_dev(b),
+                      rtol=HERMITIAN_CG_RTOL, maxiter=5000)
+    return fem.assemble_matrix(af).to_scipy(), b, _host(x), int(its)
+
+
+def vertex_ridge_cases(pkg, device=None):
+    """The nine cases of tests/test_vertex_ridge.py in ``pkg`` (f64; the
+    port on ``device``): case -> (value, exact value) as numpy arrays.
+    ``vertex_requires_entities`` is 1.0 when the form raised ValueError."""
+    import importlib
+    fem = importlib.import_module(pkg.__name__ + ".fem")
+    d = importlib.import_module(pkg.__name__ + ".forms.dsl")
+    Measure = importlib.import_module(pkg.__name__ + ".forms.measure").Measure
+    skw, fkw = _f64_kw(pkg, device)
+
+    def form(expr):      # a form with no argument names no device
+        return fem.form(expr, dtype=_form_dtype(pkg), **skw)
+
+    def rect(n):
+        return pkg.mesh.create_rectangle((0, 0), (1, 1), (n, n))
+
+    def box(n):
+        return pkg.mesh.create_box((0, 0, 0), (1, 1, 1), (n, n, n))
+
+    def scalar(expr):
+        return np.array(float(_host(fem.assemble_scalar(form(expr)))))
+
+    def x_axis_edges(mesh):
+        ev, xy = np.asarray(mesh.edges), np.asarray(mesh.vertices)
+        on = (np.abs(xy[:, 1]) < 1e-12) & (np.abs(xy[:, 2]) < 1e-12)
+        return np.flatnonzero(on[ev[:, 0]] & on[ev[:, 1]])
+
+    out = {}
+    mesh = rect(4)
+    verts = np.array([0, 7, 12], np.int64)
+    xy = np.asarray(mesh.vertices)[verts]
+    x = d.SpatialCoordinate(mesh)
+    dP = Measure("dP", domain=mesh, subdomain_data=verts)
+    out["vertex_functional"] = (scalar((x[0] ** 2 + 3.0 * x[1]) * dP),
+                                np.array((xy[:, 0] ** 2 + 3 * xy[:, 1]).sum()))
+
+    mesh = rect(3)
+    V = pkg.functionspace(mesh, ("Lagrange", 1), **skw)
+    verts = np.array([5, 9], np.int64)
+    u, v = d.TrialFunction(V), d.TestFunction(V)
+    x = d.SpatialCoordinate(mesh)
+    dP = Measure("dP", domain=mesh, subdomain_data=verts)
+    b = np.array(_host(fem.assemble_vector(form((x[0] + 2.0) * v * dP))))
+    exact = np.zeros(V.dim)
+    exact[verts] = np.asarray(mesh.vertices)[verts, 0] + 2.0
+    out["vertex_load_vector"] = (b, exact)
+    verts = np.array([2, 11], np.int64)
+    dP = Measure("dP", domain=mesh, subdomain_data=verts)
+    A = fem.assemble_matrix(form(u * v * dP)).to_dense()
+    exact = np.zeros_like(A)
+    exact[verts, verts] = 1.0
+    out["vertex_mass_matrix"] = (np.asarray(A), exact)
+
+    V2 = pkg.functionspace(mesh, ("Lagrange", 2), **skw)
+    f = pkg.Function(V2, **fkw)
+    f.interpolate(lambda x: x[0] ** 2 - x[1] ** 2 + 0.5)
+    verts = np.array([4, 8], np.int64)
+    xy = np.asarray(mesh.vertices)[verts]
+    dP = Measure("dP", domain=mesh, subdomain_data=verts)
+    out["vertex_p2_point_evaluation"] = (
+        scalar(d.CoefficientExpr(f) * dP),
+        np.array((xy[:, 0] ** 2 - xy[:, 1] ** 2 + 0.5).sum()))
+
+    mesh = box(3)
+    dr = Measure("dr", domain=mesh, subdomain_data=x_axis_edges(mesh))
+    out["ridge_length_3d"] = (
+        scalar((d.SpatialCoordinate(mesh)[0] * 0 + 1.0) * dr),
+        np.array(1.0))
+    mesh = box(2)
+    edges = x_axis_edges(mesh)
+    dr = Measure("dr", domain=mesh, subdomain_data=edges,
+                 metadata={"quadrature_degree": 3})
+    out["ridge_polynomial_3d"] = (
+        scalar(d.SpatialCoordinate(mesh)[0] ** 3 * dr), np.array(0.25))
+    V = pkg.functionspace(mesh, ("Lagrange", 1), **skw)
+    dr = Measure("dr", domain=mesh, subdomain_data=edges)
+    b = np.array(_host(fem.assemble_vector(
+        form((1.0 * d.TestFunction(V)) * dr))))
+    xyz = np.asarray(mesh.vertices)
+    on = (np.abs(xyz[:, 1]) < 1e-12) & (np.abs(xyz[:, 2]) < 1e-12)
+    out["ridge_rank1_3d"] = (np.array([b.sum(), np.abs(b[~on]).max()]),
+                             np.array([1.0, 0.0]))
+
+    mesh = rect(3)
+    verts = np.array([1, 6], np.int64)
+    dr = Measure("dr", domain=mesh, subdomain_data=verts)
+    xy = np.asarray(mesh.vertices)[verts]
+    out["ridge_2d_falls_back_to_vertices"] = (
+        scalar((d.SpatialCoordinate(mesh)[0] + 1.0) * dr),
+        np.array((xy[:, 0] + 1.0).sum()))
+    mesh = rect(2)
+    try:
+        form(d.SpatialCoordinate(mesh)[0] * Measure("dP", domain=mesh))
+        raised = 0.0
+    except ValueError:
+        raised = 1.0
+    out["vertex_requires_entities"] = (np.array(raised), np.array(1.0))
+    return out
+
+
+def petsc_profiling_checks(dev):
+    """The petsc layer on the flower problem at N_PETSC_FLOWER:
+    petsc.assemble_matrix and assemble_vector equal fem's exactly, and
+    deactivate_outside through petsc (matrix + numpy vector) equals fem's.
+    -> the numbers of the part."""
+    from cutfemx_tpu_torch import fem, petsc
+    from cutfemx_tpu_torch.demos import demo_poisson
+    from cutfemx_tpu_torch.forms.dsl import TestFunction
+    P = demo_poisson.problem(N_PETSC_FLOWER, device=dev)
+    a, dom = P["a_form"], P["domain"]
+    A1, A2 = fem.assemble_matrix(a), petsc.assemble_matrix(a)
+    L = fem.form(1.0 * TestFunction(P["V"]) * P["dx_omega"],
+                 dtype=P["b"].dtype)
+    b1, b2 = _host(fem.assemble_vector(L)), petsc.assemble_vector(L)
+    if abs(A1.to_scipy() - A2.to_scipy()).max() != 0 or \
+            not np.array_equal(b1, b2):
+        raise RuntimeError("petsc: assembly differs from fem's")
+    b3 = _host(P["b"]).copy()
+    if petsc.deactivate_outside(A2, b3, dom) is not dom:
+        raise RuntimeError("petsc.deactivate_outside returned no domain")
+    A1, b4 = fem.deactivate_outside(A1, P["b"], dom)
+    if abs(A1.to_scipy() - A2.to_scipy()).max() != 0 or \
+            not np.array_equal(b3, _host(b4)):
+        raise RuntimeError("petsc: deactivate_outside differs from fem's")
+    return dict(dofs=P["V"].dim, nnz=int(A2.to_scipy().nnz),
+                inactive_dofs=int(dom.inactive_dofs.size),
+                zero_rows=int(petsc.zero_rows(A2).size))
+
+
+def surface_io_phase(ct, dev, card, sizes=(N_SLICE,)):
+    """The rest of the single-card surface: the setup cache driving the
+    step at each of ``sizes`` (K1 on it; its launches are returned), then
+    C5/C6, complex forms, vertex and ridge measures, petsc and profiling
+    (no K1). Each part runs inside a profiling.Timer span, and the
+    registry must hold every span at the end."""
+    from cutfemx_tpu_torch import interior_stencil as ist
+    from cutfemx_tpu_torch import profiling
+    profiling.reset_timings()
+    spans = []
+
+    def span(name):
+        spans.append(name)
+        return profiling.Timer(f"surface_io.{name}", log=False)
+
+    launches = 0
+    for n in sizes:
+        with span(f"setup_cache_n{n}"):
+            run, k1 = setup_cache_pass(ct, dev, n, card)
+        launches += k1
+        if n == N_SLICE:
+            with span("c5_c6"):
+                c5_c6_checks(run, card)
+        del run
+    before = ist.launches
+    with span("complex"):
+        errs = hold_complex_cases(complex_cases(
+            ct, N_HELMHOLTZ, N_COMPLEX_RUNTIME, device=dev))
+        A, b, x, its = hermitian_cg(ct, N_HERMITIAN, device=dev)
+        from scipy.sparse.linalg import spsolve
+        xs = spsolve(A.tocsc(), b)
+        herm = float(abs(A - A.conj().T).max())
+        x_err = float(np.abs(x - xs).max() / np.abs(xs).max())
+        if not (herm == 0.0 and x_err <= HERMITIAN_X_RTOL):
+            raise RuntimeError(f"complex cg: |A - A^H| {herm}, x against "
+                               f"spsolve {x_err} > {HERMITIAN_X_RTOL}")
+        _phase("surface_io", part="complex", n_helmholtz=N_HELMHOLTZ,
+               n_runtime=N_COMPLEX_RUNTIME, **errs, n_hermitian=N_HERMITIAN,
+               hermitian_dofs=int(b.size), cg_iterations=its,
+               cg_x_rel_err=x_err, card=card)
+    with span("vertex_ridge"):
+        errs = {}
+        for case, (got, exact) in vertex_ridge_cases(ct, device=dev).items():
+            errs[case] = float(np.abs(got - exact).max())
+            if not errs[case] <= VERTEX_RIDGE_TOL:
+                raise RuntimeError(f"{case}: {errs[case]} from the exact "
+                                   f"value (> {VERTEX_RIDGE_TOL})")
+        _phase("surface_io", part="vertex_ridge", **errs, card=card)
+    with span("petsc"):
+        nums = petsc_profiling_checks(dev)
+    held = profiling.timings()
+    missing = [s for s in spans if f"surface_io.{s}" not in held]
+    if missing:
+        raise RuntimeError(f"profiling.timings() lacks the spans {missing}")
+    _phase("surface_io", part="petsc_profiling", **nums,
+           spans={k: v[1] for k, v in held.items()}, card=card)
+    k1 = ist.launches - before
+    if k1:
+        raise RuntimeError(f"the complex, vertex, ridge and petsc parts "
+                           f"launched K1 {k1} times")
+    return launches
+
+
 def main():
     import argparse
     import torch
@@ -3117,6 +3562,18 @@ def main():
            k1_launches_curved=curved_launches, k1_launches_saye=saye_k1,
            total_seconds=time.perf_counter() - t_all)
 
+    # the rest of the single-card surface: the step from io's setup cache
+    # (K1 in every iteration), then the compact rule views, numpy vectors,
+    # complex forms, vertex and ridge measures, petsc and profiling (no K1)
+    t0 = time.perf_counter()
+    io_launches = surface_io_phase(
+        ct, dev, smi, (N_SLICE, 108) if args.n108 else (N_SLICE,))
+    if io_launches <= 0:
+        raise RuntimeError("the setup-cache step launched no K1 kernel")
+    _phase("surface_io_done", seconds=time.perf_counter() - t0,
+           k1_launches_setup_cache=io_launches,
+           total_seconds=time.perf_counter() - t_all)
+
     # the main path's shape: the slice's grid and mask in f32, the CG's type
     main_row = next(r for r in k if r["shape"] == "n48_bench"
                     and r["dtype"] == "float32")
@@ -3129,7 +3586,8 @@ def main():
                              "mg": mg_k1, "demos_12a": demos_k1,
                              "unfitted": unfitted_k1,
                              "curved_bench": curved_launches,
-                             "saye_and_parity": saye_k1},
+                             "saye_and_parity": saye_k1,
+                             "setup_cache": io_launches},
         **{key: main_row[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")},
         "bound_by": "bytes",

@@ -23,10 +23,15 @@ _torch.set_float32_matmul_precision("highest")
 
 import sys as _sys  # noqa: E402
 
-from . import mesh  # noqa: E402,F401
+from . import la, mesh  # noqa: E402,F401
 from .functionspace import (  # noqa: E402,F401
-    Function, FunctionSpace, functionspace)
+    Constant, Function, FunctionSpace, functionspace)
+from .forms.measure import Measure, dS, ds, dx  # noqa: E402,F401
 from .forms import dsl as ufl  # noqa: E402,F401  (UFL-like namespace)
+from .forms.dsl import QuadratureField  # noqa: E402,F401
+
+# the reference's name for the quadrature-point field type
+QuadratureFunction = QuadratureField
 
 _sys.modules[__name__ + ".ufl"] = ufl  # `from cutfemx_tpu_torch.ufl import`
 
@@ -47,9 +52,12 @@ create_cut_mesh = _cut_api.create_cut_mesh
 
 __version__ = "0.1.0"
 
-_LAZY_MODULES = ("fem", "la", "level_set", "mg", "stencil",
-                 "interior_stencil", "interop", "demos", "distance",
-                 "extensions", "native", "optimization", "refine")
+_LAZY_MODULES = ("fem", "level_set", "mg", "stencil", "interior_stencil",
+                 "interop", "demos", "distance", "extensions", "native",
+                 "optimization", "refine", "io", "petsc", "profiling")
+# the reference's modules that the port does not have yet, and the
+# ROADMAP item that ports them
+_UNPORTED = {"parallel": "ROADMAP item 13"}
 _LEVELSET_API = ("normal", "level_set_value", "surface_normal", "conormal",
                  "correction_distance")
 
@@ -65,5 +73,8 @@ def __getattr__(name):
     if name in _LEVELSET_API:
         mod = _importlib.import_module(".level_set", __name__)
         return getattr(mod, name)
+    if name in _UNPORTED:
+        raise AttributeError(
+            f"cutfemx_tpu_torch.{name} is not ported yet ({_UNPORTED[name]})")
     raise AttributeError(
         f"module 'cutfemx_tpu_torch' has no attribute '{name}'")

@@ -76,6 +76,12 @@ class ReferenceCell:
         return self.name in (CellType.interval, CellType.triangle,
                              CellType.tetrahedron)
 
+    def facet_reference_volume(self):
+        """Reference measure of one facet's own reference cell."""
+        if self.facet_cell_type == "point":
+            return 1.0
+        return reference_cell(self.facet_cell_type).volume
+
     def facet_vertices_coords(self):
         """(num_facets, nv_facet, tdim) coordinates of facet vertices."""
         return self.vertices[self.facets]

@@ -189,6 +189,10 @@ class CutData:
         return self._mesh.gdim
 
     @property
+    def num_local_cells(self):
+        return self._mesh.num_cells
+
+    @property
     def entities(self):
         return self._entities
 

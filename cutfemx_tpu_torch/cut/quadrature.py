@@ -51,7 +51,13 @@ class RuntimeQuadratureRules:
     set's device; parent_map holds the n parent entities. Facet-hosted
     rules also carry the background cell whose reference coordinates the
     points are in (``parent_cells``, the facet's first cell) and the
-    facet's local index in it (``local_facets``)."""
+    facet's local index in it (``local_facets``).
+
+    The compact views of the reference's contract (``points``,
+    ``weights``, ``offsets``, ``total_points``, ``mask`` and the lazy
+    ``physical_points``) are host numpy arrays of the nonzero-weight
+    points, copied from the padded tensors at first use; assembly reads
+    only the padded tensors."""
 
     kind = "per_entity"
 
@@ -67,6 +73,73 @@ class RuntimeQuadratureRules:
                              else np.asarray(parent_cells, np.int32))
         self.local_facets = local_facets
         self.normals_padded = normals_padded  # interface geometric normals
+        self._compact = None
+        self._physical_points = None
+
+    # -- compact (reference-contract) views ---------------------------------
+
+    def _compact_arrays(self):
+        if self._compact is None:
+            w = _host(self.weights_padded)
+            p = _host(self.points_padded)
+            mask = w != 0.0
+            counts = mask.sum(axis=1)
+            offsets = np.zeros(len(counts) + 1, dtype=np.int64)
+            np.cumsum(counts, out=offsets[1:])
+            self._compact = (p[mask], w[mask], offsets, mask)
+        return self._compact
+
+    @property
+    def points(self):
+        return self._compact_arrays()[0]
+
+    @property
+    def weights(self):
+        return self._compact_arrays()[1]
+
+    @property
+    def offsets(self):
+        return self._compact_arrays()[2]
+
+    @property
+    def total_points(self):
+        return int(self.offsets[-1])
+
+    @property
+    def mask(self):
+        return self._compact_arrays()[3]
+
+    @property
+    def gdim(self):
+        return self.mesh.gdim if self.mesh is not None else self.tdim
+
+    @property
+    def physical_points(self):
+        """(gdim, total_points) host pushforward of the nonzero-weight
+        points through the parent cells' P1 geometry, computed at first
+        use and cached."""
+        if self._physical_points is None:
+            if self.mesh is None:
+                raise RuntimeError("rules have no mesh attached")
+            el = lagrange_element(self.mesh.cell_type, 1)
+            pts = _host(self.points_padded).astype(np.float64)
+            phi = el.tabulate(pts)                     # (n, Qmax, nv)
+            coords = self.mesh.cell_vertex_coords[self.parent_cells]
+            phys = np.einsum("nqv,nvg->nqg", phi, coords)
+            self._physical_points = np.ascontiguousarray(
+                phys[self.mask].T)
+        return self._physical_points
+
+    def with_physical_points(self):
+        _ = self.physical_points
+        return self
+
+
+def _host(a):
+    """A tensor (on any device) or array as a host numpy array."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
 
 
 # ---------------------------------------------------------------------------

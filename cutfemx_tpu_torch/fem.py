@@ -1,9 +1,10 @@
 """Runtime form assembly, dof deactivation and matrix-free operators.
 
 The torch counterpart of ``cutfemx_tpu.fem``: ``form``/``CutForm`` (rank
-0, 1 and 2, per-block forms of a mixed space, ``dx``, ``ds`` and ``dS``
-integrals over standard entities or runtime rules, side-aware quadrature
-fields on runtime ``dS``) with its bucket padding, the monolithic
+0, 1 and 2, real or complex, per-block forms of a mixed space, ``dx``,
+``ds`` and ``dS`` integrals over standard entities or runtime rules,
+side-aware quadrature fields on runtime ``dS``, vertex ``dP`` and ridge
+``dr`` integrals over entity arrays) with its bucket padding, the monolithic
 ``MixedCutForm``, ``extract_blocks``, ``assemble_scalar/vector/matrix``
 and their block variants, strong Dirichlet conditions (``dirichletbc``,
 ``locate_dofs_*``, ``set_bc``, ``apply_lifting``), the sparsity helpers
@@ -31,12 +32,14 @@ import torch
 
 from .forms.compile import compile_integral
 from .forms.dsl import extract_arguments
-from .forms.measure import FormExpr, split_subdomain_data
+from .forms.measure import (FormExpr, Integral, Measure,
+                            split_subdomain_data)
 from .la import MatrixCSR
 
-__all__ = ["CutForm", "form", "MixedCutForm", "extract_blocks",
-           "assemble_scalar", "assemble_vector", "assemble_matrix",
-           "assemble_matrix_block", "assemble_vector_block",
+__all__ = ["CutForm", "form", "cut_form", "MixedCutForm",
+           "extract_blocks", "assemble_scalar", "assemble_vector",
+           "assemble_matrix", "assemble_matrix_block",
+           "assemble_vector_block",
            "DirichletBC", "dirichletbc", "locate_dofs_geometrical",
            "locate_dofs_topological", "set_bc", "apply_lifting",
            "create_sparsity_pattern", "insert_diagonal", "create_matrix",
@@ -49,7 +52,11 @@ __all__ = ["CutForm", "form", "MixedCutForm", "extract_blocks",
 def segment_sum_sorted(vals, lengths):
     """Sums of consecutive runs of ``vals``: run i has ``lengths[i]``
     entries (zero-length runs sum to 0). One pass in a fixed order, with no
-    atomics."""
+    atomics. Complex values are summed as (real, imag) pairs, in the same
+    order (torch's segment reduction has no complex kernel)."""
+    if vals.is_complex():
+        return torch.view_as_complex(torch.segment_reduce(
+            torch.view_as_real(vals), "sum", lengths=lengths, unsafe=True))
     return torch.segment_reduce(vals, "sum", lengths=lengths, unsafe=True)
 
 
@@ -61,6 +68,63 @@ def sorted_scatter_plan(flat_rows, num_segments, device):
     lengths = np.bincount(flat_rows, minlength=num_segments)
     return (torch.as_tensor(perm, device=device),
             torch.as_tensor(lengths, device=device))
+
+
+def _first_host(table, entities, num_entities, what):
+    """(host row, local column) of each entity's first occurrence in
+    ``table`` (rows: cells, columns: their local entities)."""
+    nloc = table.shape[1]
+    flat = table.ravel()
+    order = np.argsort(flat, kind="stable")
+    uniq, first = np.unique(flat[order], return_index=True)
+    host_of = np.full(num_entities, -1, np.int64)
+    host_of[uniq] = order[first] // nloc
+    host = host_of[entities]
+    if np.any(host < 0):
+        raise ValueError(f"{what} without an adjacent cell")
+    local = np.argmax(table[host] == entities[:, None], axis=1)
+    return host, local
+
+
+def _vertex_rules(mesh, verts, device):
+    """One-point physical-weight runtime rules hosting each vertex in an
+    adjacent cell: the integral is the sum of the integrand's values at
+    the vertices (the reference's vertex integral type)."""
+    from .cells import reference_cell
+    from .cut.quadrature import RuntimeQuadratureRules
+    verts = np.asarray(verts, np.int64)
+    host, local = _first_host(np.asarray(mesh.cells), verts,
+                              mesh.num_vertices, "vertex")
+    pts = reference_cell(mesh.cell_type).vertices[local][:, None, :]
+    wts = np.ones((len(verts), 1))
+    return RuntimeQuadratureRules(
+        mesh.tdim, host, torch.as_tensor(pts, device=device),
+        torch.as_tensor(wts, device=device), mesh=mesh)
+
+
+def _ridge_rules(mesh, edges, device, degree=2):
+    """Arc-length Gauss rules along mesh edges, hosted in an adjacent
+    cell's reference coordinates (the reference's ridge integral type,
+    codim 2 in 3D)."""
+    from .cells import reference_cell
+    from .cut.quadrature import RuntimeQuadratureRules
+    from .quadrature import gauss_legendre
+    edges = np.asarray(edges, np.int64)
+    host, local = _first_host(np.asarray(mesh.cell_edges), edges,
+                              mesh.num_edges, "edge")
+    cell = reference_cell(mesh.cell_type)
+    eview = np.asarray(cell.edges)
+    A = cell.vertices[eview[local, 0]]
+    B = cell.vertices[eview[local, 1]]
+    t, w = gauss_legendre(max(1, (degree + 2) // 2))
+    pts = A[:, None, :] + t[None, :, None] * (B - A)[:, None, :]
+    ev = np.asarray(mesh.edges)[edges]
+    xy = np.asarray(mesh.vertices)
+    length = np.linalg.norm(xy[ev[:, 1]] - xy[ev[:, 0]], axis=1)
+    wts = length[:, None] * w[None, :]
+    return RuntimeQuadratureRules(
+        mesh.tdim, host, torch.as_tensor(pts, device=device),
+        torch.as_tensor(wts, device=device), mesh=mesh)
 
 
 def _canonical_device(d):
@@ -216,9 +280,28 @@ class CutForm:
                     out.append(self._interior_facet_instance(itg, ents))
                 out.append(self._runtime_interior_facet_instance(itg,
                                                                  rules))
-        else:
-            raise NotImplementedError(
-                f"{itype} integrals (ROADMAP item 9)")
+        else:  # vertex or ridge
+            # lowered onto the runtime cell path: a vertex integral is a
+            # one-point physical-weight rule hosted in an adjacent cell
+            # (the sum of the integrand's point values); a ridge (codim-2)
+            # integral is a Gauss rule along each edge, pulled back into
+            # its host cell with arc-length weights. In 2D ridges are
+            # vertices.
+            if rules is not None:
+                raise ValueError(f"{itype} integrals take entity arrays, "
+                                 "not runtime rules")
+            if ents is None or not len(ents):
+                raise ValueError(f"{itype} integrals require an entity "
+                                 "array in subdomain_data")
+            if itype == "vertex" or mesh.tdim == 2:
+                vr = _vertex_rules(mesh, ents, self.device)
+            else:
+                deg = itg.measure.metadata.get("quadrature_degree", 2)
+                vr = _ridge_rules(mesh, ents, self.device, deg)
+            cell_itg = Integral(itg.integrand,
+                                Measure("dx", domain=itg.measure.domain,
+                                        metadata=itg.measure.metadata))
+            out.append(self._runtime_cell_instance(cell_itg, vr))
         return [self._bucket_pad(o) for o in out if o is not None]
 
     @staticmethod
@@ -457,17 +540,24 @@ class CutForm:
 class DirichletBC:
     """Strong Dirichlet condition: blocked dofs of ``V`` and their
     prescribed values, both host numpy (the elimination runs on the host
-    CSR matrix). ``value`` is a Function of ``V``, a ConstantExpr or
+    CSR matrix). ``value`` is a Function of ``V``, a Constant (one value,
+    or one per component of a ``bs``-vector space), a ConstantExpr or
     constant, a scalar, one value per dof, or one value per component of
     a ``bs``-vector space."""
 
     def __init__(self, value, dofs, V):
         from .forms.dsl import ConstantExpr
-        from .functionspace import Function
+        from .functionspace import Constant, Function
         self.function_space = V
         self.dofs = np.asarray(dofs, dtype=np.int64).ravel()
         if isinstance(value, Function):
             self.values = value.x.detach().cpu().numpy()[self.dofs]
+            return
+        if isinstance(value, Constant):
+            v = value.value.detach().cpu().numpy()
+            if v.size == V.bs and V.bs > 1:
+                v = v.ravel()[self.dofs % V.bs]
+            self.values = np.broadcast_to(v, self.dofs.shape).astype(float)
             return
         if isinstance(value, ConstantExpr):
             value = value.value
@@ -560,6 +650,9 @@ def form(form_expr, dtype=None, device="cuda"):
     if any(part is not None for _, part in _arguments(form_expr)):
         return MixedCutForm(form_expr, dtype=dtype, device=device)
     return CutForm(form_expr, dtype=dtype, device=device)
+
+
+cut_form = form
 
 
 def _arguments(form_expr):

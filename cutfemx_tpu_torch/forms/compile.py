@@ -4,8 +4,9 @@ The torch counterpart of ``cutfemx_tpu.forms.compile``: the element kernel
 is a torch function of one entity, and the element matrix/vector is
 extracted from the scalar integrand by automatic differentiation
 (``torch.func.grad`` and ``jacfwd(jacrev(...))``, vmapped over entities) —
-exact for (multi)linear forms. Real dtypes only; complex forms wait for
-ROADMAP item 9.
+exact for (multi)linear forms. Complex forms differentiate forward along
+the real direction (``_holomorphic_jacfwd``), the complex derivative of
+their holomorphic integrands.
 
 Kernel layout per integral type (single entity; vmapped over entities):
 
@@ -449,6 +450,15 @@ class IntegralKernel:
         n = sp.element.ndofs * sp.bs
         return 2 * n if self.itype == "interior_facet" else n
 
+    def has_block(self, block):
+        """Whether the (test_part, trial_part) pair appears in this
+        integral."""
+        tp, up = block
+        ok = (0, tp) in self.args
+        if self.rank == 2:
+            ok = ok and (1, up) in self.args
+        return ok
+
     # -- public batched entry points ----------------------------------------
 
     def _get(self, kind, dtype, block=(None, None)):
@@ -457,9 +467,7 @@ class IntegralKernel:
         key = (kind, str(dtype), block)
         if key in self._batched:
             return self._batched[key]
-        if dtype.is_complex:
-            raise NotImplementedError(
-                "complex forms (ROADMAP item 9: holomorphic AD)")
+        d_dz = _holomorphic_jacfwd if dtype.is_complex else torch.func.grad
         if kind == "scalar":
             def one(data):
                 return self._entity_scalar(data, {}, dtype)
@@ -471,7 +479,7 @@ class IntegralKernel:
             def one(data):
                 z = torch.zeros(nv, dtype=dtype,
                                 device=data["coords"].device)
-                return torch.func.grad(
+                return d_dz(
                     lambda v: self._entity_scalar(data, {vkey: v}, dtype))(z)
         elif kind == "matrix":
             varg = self.args[(0, block[0])]
@@ -487,6 +495,10 @@ class IntegralKernel:
                 def f(u, v):
                     return self._entity_scalar(data, {vkey: v, ukey: u},
                                                dtype)
+                if dtype.is_complex:
+                    return _holomorphic_jacfwd(
+                        lambda u: _holomorphic_jacfwd(
+                            lambda v: f(u, v))(zv))(zu)     # (nv, nu)
                 return torch.func.jacfwd(torch.func.jacrev(f, argnums=1),
                                          argnums=0)(zu, zv)  # (nv, nu)
         else:  # pragma: no cover
@@ -512,6 +524,21 @@ class IntegralKernel:
     def assemble_matrix(self, data, dtype, block=(None, None)):
         """-> (E, nv, nu) element matrices (rows: test, cols: trial)."""
         return self._run("matrix", data, dtype, block)
+
+
+def _holomorphic_jacfwd(f):
+    """The complex derivative of a holomorphic ``f`` (the reference's
+    ``holomorphic=True`` AD, which torch.func lacks: its transforms refuse
+    complex inputs and outputs, and reverse mode gives the conjugate
+    Wirtinger derivative). By Cauchy-Riemann, df/dz equals the derivative
+    along the real direction, so ``f`` is evaluated at ``z + t`` for a
+    real ``t`` and differentiated forward in ``t``, with its output seen
+    as (real, imag) pairs. -> z -> (f's shape) + z's shape, complex."""
+    def jac(z):
+        t = torch.zeros(z.shape, dtype=z.real.dtype, device=z.device)
+        J = torch.func.jacfwd(lambda t: torch.view_as_real(f(z + t)))(t)
+        return torch.complex(*J.unbind(dim=-1 - z.dim()))
+    return jac
 
 
 _KERNEL_CACHE: dict = {}

@@ -38,9 +38,11 @@ def as_expr(v):
         return v
     if isinstance(v, (int, float, complex, np.floating, np.integer)):
         return ConstantExpr(v)
-    from ..functionspace import Function
+    from ..functionspace import Constant, Function
     if isinstance(v, Function):
         return CoefficientExpr(v)
+    if isinstance(v, Constant):
+        return ConstantExpr(v.value)
     if isinstance(v, (torch.Tensor, np.ndarray)):
         return ConstantExpr(v)
     raise TypeError(f"cannot convert {type(v)} to an expression")
@@ -447,6 +449,11 @@ class Exp(_UnaryFn):
 class Ln(_UnaryFn):
     fn = staticmethod(torch.log)
     dfn = staticmethod(lambda x: 1.0 / x)
+
+
+class Abs(_UnaryFn):
+    fn = staticmethod(torch.abs)
+    dfn = staticmethod(torch.sign)
 
 
 def sqrt(a):

@@ -18,7 +18,7 @@ import torch
 from .elements import lagrange_element
 from .mesh import Mesh
 
-__all__ = ["FunctionSpace", "functionspace", "Function"]
+__all__ = ["FunctionSpace", "functionspace", "Function", "Constant"]
 
 
 class FunctionSpace:
@@ -242,6 +242,9 @@ class FunctionSpace:
         out[self.dofmap.ravel()] = coords.reshape(-1, mesh.gdim)
         return out
 
+    def tabulate_dof_coordinates(self):
+        return self.dof_coordinates
+
 
 def _face_orientation_slots(cell, el, eidx, dofs, p):
     """Canonical face-slot table for the interior dofs of local face
@@ -367,3 +370,24 @@ class Function:
     @property
     def dtype(self):
         return self.x.dtype
+
+
+class Constant:
+    """A constant of a form: ``value`` is a tensor on ``device`` (the CUDA
+    card unless the caller asks for another)."""
+
+    def __init__(self, value, dtype=None, *, device="cuda"):
+        if isinstance(value, torch.Tensor):
+            self.value = value.to(device=device, dtype=dtype or value.dtype)
+        else:
+            if dtype is None:
+                dtype = torch.get_default_dtype()
+                if np.iscomplexobj(value):
+                    dtype = {torch.float32: torch.complex64,
+                             torch.float64: torch.complex128}[dtype]
+            self.value = torch.as_tensor(np.asarray(value), dtype=dtype,
+                                         device=device)
+
+    @property
+    def dtype(self):
+        return self.value.dtype

@@ -98,6 +98,12 @@ def direct_solve(A, b):
     return spsolve(m.tocsr(), np.asarray(b))
 
 
+def _rdot(a, b):
+    """Re(a^H b): the inner product of real and complex vectors (on real
+    tensors ``torch.vdot`` is ``torch.dot``, the same kernel)."""
+    return torch.vdot(a, b).real
+
+
 def cg_init(operator, b, x0=None, M=None):
     """Initial PCG state (x, r, p, rz, it) and squared rhs norm."""
     x = torch.zeros_like(b) if x0 is None else x0
@@ -106,8 +112,8 @@ def cg_init(operator, b, x0=None, M=None):
             return r
     r = b - operator(x)
     z = M(r)
-    rz = torch.dot(r, z)
-    return (x, r, z, rz, 0), torch.dot(b, b)
+    rz = _rdot(r, z)
+    return (x, r, z, rz, 0), _rdot(b, b)
 
 
 def cg_resume(operator, state, M, tol2, it_cap):
@@ -121,15 +127,15 @@ def cg_resume(operator, state, M, tol2, it_cap):
         # rz > 0 is a finite-precision breakdown guard: in exact
         # arithmetic (r, M^-1 r) stays positive, and once it is not, the
         # recurrence can only produce garbage (NaN x within a few steps)
-        go = (torch.dot(r, r) > tol2) & (rz > 0)
+        go = (_rdot(r, r) > tol2) & (rz > 0)
         if it >= it_cap or not bool(go):
             break
         Ap = operator(p)
-        alpha = rz / torch.dot(p, Ap)
+        alpha = rz / _rdot(p, Ap)
         x = x + alpha * p
         r = r - alpha * Ap
         z = M(r)
-        rz_new = torch.dot(r, z)
+        rz_new = _rdot(r, z)
         beta = rz_new / rz
         p = z + beta * p
         rz = rz_new
@@ -163,17 +169,17 @@ def bicgstab(operator, b, x0=None, M=None, rtol=1e-10, maxiter=1000):
     v = p = torch.zeros_like(b)
     tol2 = (rtol * torch.linalg.norm(b)) ** 2
     it = 0
-    while it < maxiter and bool(torch.dot(r, r) > tol2):
-        rho_new = torch.dot(rhat, r)
+    while it < maxiter and bool(_rdot(r, r) > tol2):
+        rho_new = torch.vdot(rhat, r)
         beta = (rho_new / rho) * (alpha / omega)
         p = r + beta * (p - omega * v)
         phat = M(p)
         v = operator(phat)
-        alpha = rho_new / torch.dot(rhat, v)
+        alpha = rho_new / torch.vdot(rhat, v)
         s = r - alpha * v
         shat = M(s)
         t = operator(shat)
-        omega = torch.dot(t, s) / torch.dot(t, t)
+        omega = torch.vdot(t, s) / torch.vdot(t, t)
         x = x + alpha * phat + omega * shat
         r = s - omega * t
         rho = rho_new
@@ -191,7 +197,7 @@ def power_iteration_lmax(operator, d, n, iters=15):
         y = dinv_sqrt * operator(dinv_sqrt * x)
         x = y / torch.linalg.norm(y)
     y = dinv_sqrt * operator(dinv_sqrt * x)
-    return torch.dot(x, y)
+    return _rdot(x, y)
 
 
 def chebyshev_preconditioner(operator, d, lmax, degree=4, lmin_frac=0.06):

@@ -27,8 +27,9 @@ import threading
 
 import numpy as np
 
-__all__ = ["build", "orient3d", "orient3d_batch", "parse_stl_records",
-           "tri_cell_overlap", "tri_tri_isect_batch", "seg_tri_isect_batch"]
+__all__ = ["build", "get_lib", "native_available", "orient3d",
+           "orient3d_batch", "parse_stl_records", "tri_cell_overlap",
+           "tri_tri_isect_batch", "seg_tri_isect_batch"]
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                     "geometry_kernels.cpp")
@@ -80,7 +81,10 @@ def build():
         dp = ctypes.POINTER(ctypes.c_double)
         u8p = ctypes.POINTER(ctypes.c_uint8)
         sigs = {
+            "cutfemx_orient2d": (ctypes.c_double, [dp, dp, dp]),
             "cutfemx_orient3d": (ctypes.c_double, [dp, dp, dp, dp]),
+            "cutfemx_seg_tri_isect": (ctypes.c_int, [dp, dp, dp, dp, dp]),
+            "cutfemx_tri_tri_isect": (ctypes.c_int, [dp, dp]),
             "cutfemx_orient3d_batch": (None, [dp, dp, dp, dp,
                                               ctypes.c_int64, dp]),
             "cutfemx_parse_stl_records": (None, [u8p, ctypes.c_int64, dp,
@@ -98,6 +102,20 @@ def build():
             fn.argtypes = args
         _lib = lib
         return _lib
+
+
+def get_lib():
+    """The loaded library, or None when it cannot be built here (the
+    reference's contract; ``build`` raises with the compiler's
+    messages instead)."""
+    try:
+        return build()
+    except RuntimeError:
+        return None
+
+
+def native_available():
+    return get_lib() is not None
 
 
 def _f64(a):

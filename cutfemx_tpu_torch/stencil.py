@@ -327,9 +327,20 @@ class StencilCutOperator:
 
     # -- grid-layout conversions ---------------------------------------------
 
+    def _vector(self, x):
+        """``x`` as a tensor of the form's dtype (the stencil's) on the
+        operator's device: numpy input is copied there, a tensor on another
+        device refused (as ``fem.CutOperator`` takes its vectors)."""
+        if isinstance(x, torch.Tensor) and x.device != self.device:
+            raise ValueError(f"vector on {x.device}, operator on "
+                             f"{self.device}")
+        return torch.as_tensor(x, dtype=self.A_local.dtype,
+                               device=self.device)
+
     def vec_to_grid(self, x):
         """Dof vector -> flat channel-grid vector (zeros at invalid slots)."""
-        X = torch.where(self.grid_valid, x[self.grid_gather], 0.0)
+        X = torch.where(self.grid_valid, self._vector(x)[self.grid_gather],
+                        0.0)
         return X.reshape(-1)
 
     def grid_to_vec(self, Xf):
@@ -521,6 +532,7 @@ class StencilCutOperator:
             precond = self._auto_precond()
         if precond not in _PRECONDS:
             raise ValueError(f"unknown precond {precond!r}")
+        b = self._vector(b)
         if refine is True or (refine == "auto"
                               and b.dtype == torch.float32):
             return self._solve_ir(b, rtol, maxiter, precond, dispatch_chunk)

@@ -12,7 +12,6 @@ largest entry, the pins HIGHER_ORDER_RTOL relative. The reference's rule
 builders run under jax.jit (one compile per rule, several times faster
 than its op-by-op compiles; the same numbers to ~1e-15)."""
 
-import os
 
 import numpy as np
 import pytest
@@ -33,6 +32,8 @@ from chip_smoke import (CURVED_CUT, HIGHER_ORDER_RTOL,  # noqa: E402
                         JAX_CPU_CURVED, _hold_ho, curved_numbers,
                         ho_mesh_phi)
 from test_torch_core import bench_problem, host, rel_err  # noqa: E402
+from test_torch_core import (  # noqa: E402,F401  (autouse)
+    _yield_cpu_to_the_critical_file)
 
 TOL = 1e-12
 RADIUS = 0.6
@@ -40,15 +41,6 @@ ORDER = 4            # bench.py's 2 * degree: shares the reference's compiles
 CASES = {"3d": ("tetrahedron", 4, "<"), "2d": ("triangle", 8, ">")}
 PLANS = {"levels1": dict(levels=1), "levels2": dict(levels=2),
          "curved": dict(curved=True)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _yield_cpu_to_the_critical_file():
-    """Tier-1's wall time is tests/test_sgrid_pipeline.py's, which runs
-    beside this file on another worker and slows by about the CPU time
-    taken next to it; run this file's tests at a lower priority."""
-    os.nice(10)
-    yield
 
 
 def sphere(x):

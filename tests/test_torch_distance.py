@@ -26,21 +26,13 @@ from cutfemx_tpu_torch.demos.demo_stl_distance import \
     _make_sphere_stl  # noqa: E402
 from cutfemx_tpu_torch.distance import api as api_t  # noqa: E402
 from cutfemx_tpu_torch.distance import stl as stl_t  # noqa: E402
+from test_torch_core import (  # noqa: E402,F401  (autouse)
+    _yield_cpu_to_the_critical_file)
 
 TOL = 1e-12          # distances and payloads, absolute
 MODES = ("component_anchor", "local_normal_band", "winding_number")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _yield_cpu_to_the_critical_file():
-    """Tier-1's wall time is tests/test_sgrid_pipeline.py's, which runs
-    beside this file on another worker and slows by about the CPU time
-    taken next to it; run this file's tests at a lower priority. The
-    worker keeps it for the files it runs after this one."""
-    os.nice(10)
-    yield
 
 def host(a):
     if isinstance(a, torch.Tensor):

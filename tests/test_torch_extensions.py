@@ -10,7 +10,6 @@ sphere r = 0.46 in [-1, 1]^3) at n = 8 is aggregated and penalised in both
 packages."""
 
 import importlib
-import os
 
 import numpy as np
 import pytest
@@ -27,22 +26,14 @@ from cutfemx_tpu import fem as fem_j  # noqa: E402
 from cutfemx_tpu_torch import extensions as et  # noqa: E402
 from cutfemx_tpu_torch import fem as fem_t  # noqa: E402
 from test_torch_core import host, rel_err  # noqa: E402
+from test_torch_core import (  # noqa: E402,F401  (autouse)
+    _yield_cpu_to_the_critical_file)
 
 N = 16
 TOL = 1e-12
 AGG_INT = ("interior_cells", "cut_cells", "active_cells", "well_posed_cells",
            "ill_posed_cells", "rootless_cells", "root_cell", "aggregate_id",
            "propagation_depth")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _yield_cpu_to_the_critical_file():
-    """Tier-1's wall time is tests/test_sgrid_pipeline.py's, which runs
-    beside this file on another worker and slows by about the CPU time
-    taken next to it; run this file's tests at a lower priority. The
-    worker keeps it for the files it runs after this one."""
-    os.nice(10)
-    yield
 
 
 def circle(pkg, n=N, r=0.31):

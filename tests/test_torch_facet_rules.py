@@ -14,7 +14,6 @@ run in both packages: its inclusion-exclusion blocks hold the AND of its
 two clauses as well."""
 
 import importlib
-import os
 
 import numpy as np
 import pytest
@@ -26,18 +25,10 @@ import cutfemx_tpu as cj  # noqa: E402
 import cutfemx_tpu_torch as ct  # noqa: E402
 from chip_smoke import compound_numbers  # noqa: E402
 from test_torch_core import host, rel_err  # noqa: E402
+from test_torch_core import (  # noqa: E402,F401  (autouse)
+    _yield_cpu_to_the_critical_file)
 
 TOL = 1e-12
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _yield_cpu_to_the_critical_file():
-    """Tier-1's wall time is tests/test_sgrid_pipeline.py's, which runs
-    beside this file on another worker and slows by about the CPU time
-    taken next to it; run this file's tests at a lower priority. The
-    worker keeps it for the files it runs after this one."""
-    os.nice(10)
-    yield
 
 
 def level_sets(pkg, kind, n):

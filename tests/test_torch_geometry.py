@@ -12,7 +12,6 @@ Both packages take the same numpy inputs. Tolerances: maps and fields
 function values 1e-9 against the exact linear field (the reference
 test's), cell ids exactly."""
 
-import os
 
 import numpy as np
 import pytest
@@ -28,20 +27,13 @@ from cutfemx_tpu import geometry as geo_j  # noqa: E402
 from cutfemx_tpu_torch import geometry as geo_t  # noqa: E402
 from chip_smoke import _sphere, ho_mesh_phi  # noqa: E402
 from test_torch_core import host  # noqa: E402
+from test_torch_core import (  # noqa: E402,F401  (autouse)
+    _yield_cpu_to_the_critical_file)
 
 TOL = 1e-12
 F64 = torch.float64
 UNIT = {"quadrilateral": np.array([[0, 0], [1, 0], [0, 1], [1, 1]], float),
         "hexahedron": np.array(list(np.ndindex(2, 2, 2)), float)[:, ::-1]}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _yield_cpu_to_the_critical_file():
-    """Tier-1's wall time is tests/test_sgrid_pipeline.py's, which runs
-    beside this file on another worker and slows by about the CPU time
-    taken next to it; run this file's tests at a lower priority."""
-    os.nice(10)
-    yield
 
 
 def both(fn):

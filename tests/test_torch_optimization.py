@@ -23,6 +23,8 @@ from cutfemx_tpu import optimization as oj  # noqa: E402
 from cutfemx_tpu_torch import optimization as ot  # noqa: E402
 from cutfemx_tpu_torch.demos import \
     demo_compliance_optimization as demo_t  # noqa: E402
+from test_torch_core import (  # noqa: E402,F401  (autouse)
+    _yield_cpu_to_the_critical_file)
 
 TOL = 1e-12
 HISTORY_RTOL = 1e-8
@@ -31,16 +33,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKGS = ((cj, oj, {}), (ct, ot, {"device": "cpu"}))
 F64 = {"dtype": torch.float64}
 
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _yield_cpu_to_the_critical_file():
-    """Tier-1's wall time is tests/test_sgrid_pipeline.py's, which runs
-    beside this file on another worker and slows by about the CPU time
-    taken next to it; run this file's tests at a lower priority. The
-    worker keeps it for the files it runs after this one."""
-    os.nice(10)
-    yield
 
 def host(a):
     if isinstance(a, torch.Tensor):

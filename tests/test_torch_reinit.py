@@ -21,20 +21,12 @@ from cutfemx_tpu_torch import refine as refine_t  # noqa: E402
 from cutfemx_tpu_torch.demos.demo_stl_distance import \
     _make_sphere_stl  # noqa: E402
 from cutfemx_tpu_torch.distance import winding as wind_t  # noqa: E402
+from test_torch_core import (  # noqa: E402,F401  (autouse)
+    _yield_cpu_to_the_critical_file)
 
 TOL = 1e-12
 PKGS = ((cj, dj, {}), (ct, dt, {"device": "cpu"}))
 
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _yield_cpu_to_the_critical_file():
-    """Tier-1's wall time is tests/test_sgrid_pipeline.py's, which runs
-    beside this file on another worker and slows by about the CPU time
-    taken next to it; run this file's tests at a lower priority. The
-    worker keeps it for the files it runs after this one."""
-    os.nice(10)
-    yield
 
 def host(a):
     if isinstance(a, torch.Tensor):

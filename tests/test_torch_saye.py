@@ -14,7 +14,6 @@ rounding of 0 falls (ROADMAP C4): there the weights are held over the
 whole arrays and the points and normals where the weights are not zero.
 """
 
-import os
 
 import numpy as np
 import pytest
@@ -29,19 +28,12 @@ from cutfemx_tpu_torch.cut import saye as saye_t  # noqa: E402
 from chip_smoke import (HIGHER_ORDER_RTOL, JAX_CPU_SAYE,  # noqa: E402
                         _hold_ho, _sphere, ho_mesh_phi, saye_numbers)
 from test_torch_core import host  # noqa: E402
+from test_torch_core import (  # noqa: E402,F401  (autouse)
+    _yield_cpu_to_the_critical_file)
 
 TOL = 1e-12
 ORDER = 4
 SELECTORS = ("phi<0", "phi>0", "phi=0")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _yield_cpu_to_the_critical_file():
-    """Tier-1's wall time is tests/test_sgrid_pipeline.py's, which runs
-    beside this file on another worker and slows by about the CPU time
-    taken next to it; run this file's tests at a lower priority."""
-    os.nice(10)
-    yield
 
 
 def both(cell, n, degree, fn):

@@ -38,6 +38,8 @@ from chip_smoke import (PINNED_RTOL, _hold_pin, compound_numbers,  # noqa: E402
 from cutfemx_tpu_torch.demos import (  # noqa: E402
     demo_poisson_extension_penalty_study, demo_surface_poisson_dg)
 from test_torch_core import host  # noqa: E402
+from test_torch_core import (  # noqa: E402,F401  (autouse)
+    _yield_cpu_to_the_critical_file)
 
 DEMOS_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "demos")
@@ -48,16 +50,6 @@ FACET_3D_PIN_KEYS = (
     "lo_sum", "hi_sum", "interface_sum", "cut_facet_area", "cut_mesh_cells",
     "cut_mesh_area", "interior_cells", "well_posed", "ill_posed", "rootless",
     "max_depth", "penalty_nnz", "penalty_max")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _yield_cpu_to_the_critical_file():
-    """Tier-1's wall time is tests/test_sgrid_pipeline.py's, which runs
-    beside this file on another worker and slows by about the CPU time
-    taken next to it; run this file's tests at a lower priority. The
-    worker keeps it for the files it runs after this one."""
-    os.nice(10)
-    yield
 
 
 def _circle(pkg, n, degree=1, r=0.62):
