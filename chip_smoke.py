@@ -155,7 +155,28 @@ Phases, each printing one line of numbers:
     spsolve (1e-9); tests/test_vertex_ridge.py's nine cases against their
     exact values (1e-12); petsc's assembly and deactivate_outside equal
     fem's on the n = 64 flower; every part inside a profiling.Timer span,
-    all of them in profiling.timings(). No K1 outside the steps.
+    all of them in profiling.timings(). No K1 outside the steps;
+27. parallel: the distributed layer with 8 slabs stacked on the card
+    (StackedComm): __graft_entry__.dryrun_multichip(8)'s n = 16 block (the
+    production sgrid CG in f64 at rtol 1e-10 and its moving-domain re-cut
+    r 0.46 -> 0.52, each within 1e-8 of the serial "asm2" solve; the
+    spipeline halo CG within 1e-8 of the serial CutOperator's; counts
+    within +-5% (at least +-3) of JAX_CPU_PARALLEL; the psum step finite;
+    the sharded signed distance within 1e-10 of the serial one); bench.py's
+    n = 48 step through ShardedStencilProblem (8 slabs of 6 cube planes,
+    f32 forms, f64 refinement, rtol 1e-6): a warm-up and two timed passes
+    (build and solve seconds, ms per iteration, collectives), gates: true
+    relative residual <= 1e-6 through the serial f64 apply, within 1e-5 of
+    the serial solve_cg(precond="asm2"), equal counts, K1's box entry
+    launched once per apply (every slab in one launch), the collectives
+    per apply (2 ppermutes), per preconditioner apply (2 ppermutes, 1 psum)
+    and per CG iteration (4 and 4) the design's; peak memory, a profiled
+    solve, K1's box at the slab shape against its plain version bitwise
+    and timed (f32, f64) beside its bound and a cuSPARSE yardstick; the
+    moving-domain step (r = 0.52, re-cut, re-solve, the same gates; the
+    serial build cache must not adopt); the sharded signed distance of
+    demo_stl_distance's sphere at n = N_PARALLEL_FIM against the serial
+    one (1e-10, equal sweeps). --n108 adds the sgrid step at n = 108.
 The 2D phases print which stages ran on the host (classification, the
 CSR matrices, the boundary conditions and the direct solves: host code by
 the reference's design). K1 must show 0 launches on the mg, geometry,
@@ -578,37 +599,59 @@ def corner_rule_mask(n, radius=RADIUS):
     return full
 
 
-def bound_bytes(n, N, nch, table, mask, itemsize):
-    """Bytes K1 must move on these inputs: the whole output written once,
-    the mask and A read once, and the X values that full cubes touch read
-    once."""
+def bound_bytes(nch, table, mask, itemsize, points):
+    """Bytes K1 must move on these inputs, ``mask`` (B, nx, ny, nz) on
+    (B, nch, *points) grids (the cubic call is the box (1, n, n, n) on
+    (N, N, N)): every grid written once, the masks and A read once, the X
+    values that full cubes touch read once."""
     import torch
+    B, nx, ny, nz = mask.shape
     m = mask.bool()
-    touched = torch.zeros((nch, N, N, N), dtype=torch.bool,
+    touched = torch.zeros((B, nch, *points), dtype=torch.bool,
                           device=mask.device)
     for ch, (dx, dy, dz) in table:
-        touched[ch, dx:dx + n, dy:dy + n, dz:dz + n] |= m
+        touched[:, ch, dx:dx + nx, dy:dy + ny, dz:dz + nz] |= m
     L = len(table)
-    return (nch * N ** 3 + int(touched.sum()) + L * L) * itemsize + n ** 3
+    return (B * nch * int(np.prod(points)) + int(touched.sum()) + L * L) \
+        * itemsize + mask.numel()
 
 
-def csr_operator(n, N, nch, table, A, mask):
-    """The masked interior operator as a CSR matrix on the card (summed
-    duplicates), for the cuSPARSE yardstick; the port never builds it."""
+def csr_operator(nch, table, A, mask, points):
+    """The masked interior operator over the (B, nch, *points) grids as a
+    CSR matrix on the card (summed duplicates), for the cuSPARSE
+    yardstick; the port never builds it."""
     import torch
-    q = mask.bool().nonzero()                                  # (nq, 3)
-    idx = torch.stack([ch * N ** 3 + ((q[:, 0] + dx) * N + q[:, 1] + dy) * N
-                       + q[:, 2] + dz for ch, (dx, dy, dz) in table], 1)
+    Nx, Ny, Nz = points
+    q = mask.bool().nonzero()                                  # (nq, 4)
+    idx = torch.stack([((q[:, 0] * nch + ch) * Nx + q[:, 1] + dx) * Ny * Nz
+                       + (q[:, 2] + dy) * Nz + q[:, 3] + dz
+                       for ch, (dx, dy, dz) in table], 1)
     nq, L = idx.shape
-    rows = idx[:, :, None].expand(nq, L, L).reshape(-1)
-    cols = idx[:, None, :].expand(nq, L, L).reshape(-1)
-    vals = A[None].expand(nq, L, L).reshape(-1)
-    M = nch * N ** 3
+    M = mask.shape[0] * nch * Nx * Ny * Nz
     with warnings.catch_warnings():   # "CSR support is in beta"
         warnings.simplefilter("ignore", UserWarning)
-        coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals,
-                                      (M, M), check_invariants=False)
+        coo = torch.sparse_coo_tensor(
+            torch.stack([idx[:, :, None].expand(nq, L, L).reshape(-1),
+                         idx[:, None, :].expand(nq, L, L).reshape(-1)]),
+            A[None].expand(nq, L, L).reshape(-1), (M, M),
+            check_invariants=False)
         return coo.coalesce().to_sparse_csr()
+
+
+def parent_apply(lib, n, N, nch, table, A_local, cube_mask, Xin):
+    """The cubic entry of an earlier kernel source (``--parent-source``),
+    on operands ``interior_stencil_apply`` has checked."""
+    import torch
+    from cutfemx_tpu_torch import interior_stencil as ist
+    Y = torch.empty_like(Xin)
+    fn = lib.interior_stencil_f32 if Xin.dtype == torch.float32 \
+        else lib.interior_stencil_f64
+    err = fn(Xin.data_ptr(), A_local.data_ptr(), cube_mask.data_ptr(),
+             Y.data_ptr(), n, N, nch, ist._slot_table(table),
+             torch.cuda.current_stream(Xin.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"parent kernel launch failed: CUDA error {err}")
+    return Y
 
 
 def kernel_phase(ct, dev, parent_src=None):
@@ -653,7 +696,7 @@ def kernel_phase(ct, dev, parent_src=None):
             if not torch.equal(y, y2):
                 raise RuntimeError(f"interior_stencil {shape} {name}: two "
                                    "launches on one input differ")
-            csr = csr_operator(n, N, nch, table, At, mask)
+            csr = csr_operator(nch, table, At, mask[None], (N, N, N))
             lib_err = float((torch.mv(csr, Xt) - y_ref).abs().max())
             if not lib_err <= tol:
                 raise RuntimeError(f"cuSPARSE yardstick {shape} {name}: "
@@ -665,14 +708,14 @@ def kernel_phase(ct, dev, parent_src=None):
                        bitwise_repeat=True)
             if parent is not None:
                 p_args = (parent, *args)
-                p_err = float((ist._run(*p_args) - y_ref).abs().max())
+                p_err = float((parent_apply(*p_args) - y_ref).abs().max())
                 if not p_err <= tol:
                     raise RuntimeError(f"parent kernel {shape} {name}: "
                                        f"max|err| {p_err} > {tol}")
                 half = KERNEL_REPS // 2
-                p1 = _device_times(lambda: ist._run(*p_args), half, flush)
+                p1 = _device_times(lambda: parent_apply(*p_args), half, flush)
                 t = _device_times(k1, KERNEL_REPS, flush)
-                p2 = _device_times(lambda: ist._run(*p_args), half, flush)
+                p2 = _device_times(lambda: parent_apply(*p_args), half, flush)
                 row.update(parent_ms=float(np.median(p1 + p2)),
                            parent_max_abs_err=p_err)
             else:
@@ -684,7 +727,8 @@ def kernel_phase(ct, dev, parent_src=None):
                 PLAIN_REPS, flush)))
             library_ms = float(np.median(_device_times(
                 lambda: torch.mv(csr, Xt), KERNEL_REPS, flush)))
-            nbytes = bound_bytes(n, N, nch, table, mask, Xt.element_size())
+            nbytes = bound_bytes(nch, table, mask[None], Xt.element_size(),
+                                 (N, N, N))
             bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
             row.update(ms=ms, ms_warm=ms_warm, plain_ms=plain_ms,
                        library_ms=library_ms, library_max_abs_err=lib_err,
@@ -3390,6 +3434,473 @@ def surface_io_phase(ct, dev, card, sizes=(N_SLICE,)):
     return launches
 
 
+# -- the distributed layer (parallel/, distance/sharded.py) ----------------
+
+# the JAX reference (cutfemx_tpu on a CPU, 8 virtual devices, x64) of the
+# parallel phase's n = 16 block: __graft_entry__.dryrun_multichip(8), whose
+# printed line these are (PERF.md section 4 gives the command and the run)
+JAX_CPU_PARALLEL = {"n": 16, "sgrid_its": 91, "sgrid_parity": 3.915e-12,
+                    "recut_its": 124, "recut_parity": 6.788e-12,
+                    "spipeline_its": 268, "spipeline_parity": 2.488e-11,
+                    "psum_step_res": 7.384e-01, "distance_parity": 0.0}
+PARALLEL_SLABS = 8                    # the reference's test mesh size
+PARALLEL_PARITY_TOL = 1e-8            # serial parity of the n = 16 block
+PARALLEL_X_RTOL = 1e-5                # the n = 48 step against serial asm2
+RECUT_RADIUS = 0.52
+# the sharded signed distance's box: the from_stl cell's n = 96 took 64 s
+# on an H100 (56 s of it the sharded path's host set-up: eight per-slab
+# cell-triangle maps over the whole mesh, the slab tables of 21.2 M update
+# entries), so the phase runs at n = 64 (PERF.md, section 6)
+N_PARALLEL_FIM = 64
+
+
+def _band(want):
+    return max(ITERATION_BAND * want, ITERATION_BAND_MIN)
+
+
+def _hold_count(what, got, want):
+    if abs(got - want) > _band(want):
+        raise RuntimeError(f"{what}: {got} iterations, JAX-CPU {want} "
+                           f"(+-{_band(want)})")
+
+
+def _rel_norm(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def dryrun_poisson(ct, dev, n, degree, cell="triangle", r=RADIUS,
+                   dtype=None):
+    """__graft_entry__._build_cut_poisson in the port (the dryrun's 2D
+    psum-step problem): Nitsche + ghost penalty on a disk (sphere)."""
+    import torch
+    dtype = dtype or torch.float64
+    d = ct.ufl
+    if cell == "triangle":
+        mesh = ct.mesh.create_rectangle((-1.0, -1.0), (1.0, 1.0), (n, n))
+    else:
+        mesh = ct.mesh.create_box((-1, -1, -1), (1, 1, 1), (n, n, n))
+    phi = ct.Function(ct.functionspace(mesh, ("Lagrange", 1), device=dev),
+                      name="phi", dtype=dtype)
+    phi.interpolate(_sphere(r))
+    cd = ct.cut(phi)
+    inside = ct.locate_entities(cd, "phi<0")
+    dxo = ct.Measure("dx", domain=mesh, subdomain_data=[
+        inside, ct.runtime_quadrature(cd, "phi<0", 2 * degree)])
+    dxg = ct.Measure("dx", domain=mesh, subdomain_data=ct.runtime_quadrature(
+        cd, "phi=0", 2 * degree))
+    V = ct.functionspace(mesh, ("Lagrange", degree), device=dev)
+    u, v = d.TrialFunction(V), d.TestFunction(V)
+    x = d.SpatialCoordinate(mesh)
+    ng, h = ct.normal(phi), d.CellDiameter(mesh)
+    ue = d.sin(d.pi * x[0]) * d.sin(d.pi * x[1])
+    f = 2 * d.pi ** 2 * ue
+    a = d.inner(d.grad(u), d.grad(v)) * dxo
+    a += (-d.dot(d.grad(u), ng) * v - d.dot(d.grad(v), ng) * u
+          + GAMMA / h * u * v) * dxg
+    gp = ct.ghost_penalty_facets(cd, "phi<0")
+    if gp.size:
+        nf = d.FacetNormal(mesh)
+        a += 0.1 * d.avg(h) * d.inner(d.jump(d.grad(u), nf),
+                                      d.jump(d.grad(v), nf)) * ct.Measure(
+            "dS", domain=mesh, subdomain_data=gp)
+    L = f * v * dxo + (-d.dot(d.grad(v), ng) * ue
+                       + GAMMA / h * ue * v) * dxg
+    af = ct.fem.form(a, dtype=dtype)
+    return af, ct.fem.active_domain(af), ct.fem.assemble_vector(
+        ct.fem.form(L, dtype=dtype))
+
+
+def parallel_parity_phase(ct, dev, card):
+    """__graft_entry__.dryrun_multichip(8) on the card, 8 slabs stacked on
+    it (StackedComm): the production sgrid CG (f64, rtol 1e-10) and its
+    moving-domain re-cut (r 0.46 -> 0.52) against the serial stack
+    (solve_cg(precond="asm2")), the spipeline Jacobi-halo CG against the
+    serial CutOperator, the psum step, the sharded signed distance
+    against the serial one; counts against JAX_CPU_PARALLEL."""
+    import tempfile
+    import torch
+    from cutfemx_tpu_torch import distance
+    from cutfemx_tpu_torch.demos import demo_stl_distance
+    from cutfemx_tpu_torch.distance.sharded import sharded_signed_distance
+    from cutfemx_tpu_torch.fem import CutOperator
+    from cutfemx_tpu_torch.parallel import (ShardedCutProblem,
+                                            cut_poisson_builder,
+                                            make_device_mesh,
+                                            sharded_cut_poisson_step)
+    from cutfemx_tpu_torch.parallel.sgrid import ShardedStencilProblem
+    from cutfemx_tpu_torch.parallel.spipeline import activity_weights
+    from cutfemx_tpu_torch.stencil import StencilCutOperator
+    ref = JAX_CPU_PARALLEL
+    n, f64 = ref["n"], torch.float64
+    dmesh = make_device_mesh(PARALLEL_SLABS, devices=[dev])
+    mesh, phi, V = setup(ct, n, dev, f64)
+    out = {}
+    for name, radius in (("sgrid", RADIUS), ("recut", RECUT_RADIUS)):
+        phi.interpolate(_sphere(radius))
+        t0 = time.perf_counter()
+        sprob = ShardedStencilProblem(V, cut_poisson_builder(V, phi), dmesh,
+                                      dtype=f64)
+        xp, its, res = sprob.solve_cg(rtol=1e-10, maxiter=2000)
+        t1 = time.perf_counter()
+        P = poisson_forms(ct, mesh, phi, V, f64)
+        sop = StencilCutOperator(P["af"], P["dom"])
+        b = torch.where(sop.active, P["b"], 0.0)
+        xs, its_s, _ = sop.solve_cg(b, rtol=1e-10, maxiter=2000,
+                                    precond="asm2")
+        err = _rel_norm(xp, xs.cpu().numpy())
+        if not err <= PARALLEL_PARITY_TOL:
+            raise RuntimeError(f"{name}: sgrid/serial parity {err}")
+        _hold_count(name, its, ref[f"{name}_its"])
+        out[name] = dict(its=its, parity=err, serial_its=int(its_s),
+                         residual=res, seconds=t1 - t0)
+        _phase("parallel_parity", case=name, n=n, slabs=PARALLEL_SLABS,
+               dofs=V.dim, iterations=its, jax_cpu_iterations=ref[
+                   f"{name}_its"], serial_iterations=int(its_s),
+               parity=err, jax_cpu_parity=ref[f"{name}_parity"],
+               serial_asm_build=sop.build_log["asm"][0],
+               seconds=t1 - t0, card=card)
+    phi.interpolate(_sphere(RADIUS))
+
+    P = poisson_forms(ct, mesh, phi, V, f64)
+    op = CutOperator(P["af"], P["dom"])
+    bb = torch.where(op.active, P["b"], 0.0)
+    t0 = time.perf_counter()
+    prob = ShardedCutProblem(V, cut_poisson_builder(V, phi), dmesh,
+                             dtype=f64, weights=activity_weights(phi))
+    x, its, _ = prob.solve_cg(rtol=1e-10, maxiter=1500)
+    t1 = time.perf_counter()
+    x_se, its_se, _ = op.solve_cg(bb, rtol=1e-10, maxiter=1500)
+    act = P["dom"].active_mask
+    err = _rel_norm(x[act], x_se.cpu().numpy()[act])
+    if not err <= PARALLEL_PARITY_TOL:
+        raise RuntimeError(f"spipeline: parity {err}")
+    _hold_count("spipeline", its, ref["spipeline_its"])
+    _phase("parallel_parity", case="spipeline", n=n, iterations=its,
+           jax_cpu_iterations=ref["spipeline_its"],
+           serial_iterations=int(its_se), parity=err,
+           jax_cpu_parity=ref["spipeline_parity"], seconds=t1 - t0,
+           card=card)
+
+    a2, dom2, b2 = dryrun_poisson(ct, dev, 3 * PARALLEL_SLABS, 1)
+    x2, res2 = sharded_cut_poisson_step(a2, dom2, dmesh, cg_iters=5)(b2)
+    if not bool(torch.isfinite(x2).all()):
+        raise RuntimeError("psum step: non-finite solution")
+    _phase("parallel_parity", case="psum_step", n=3 * PARALLEL_SLABS,
+           residual=float(res2), jax_cpu_residual=ref["psum_step_res"],
+           card=card)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sphere.stl")
+        demo_stl_distance._make_sphere_stl(path, r=0.55, n=10)
+        soup = distance.read_stl(path)
+    m8 = _sphere_mesh(ct, 8)
+    dp, its = sharded_signed_distance(m8, soup, dmesh)
+    ds, its_s = distance.compute_signed_distance(
+        m8, soup, sign_mode="local_normal_band", device=dev)
+    err = float(np.abs(dp - ds).max())
+    if not (err <= DISTANCE_ABS_TOL and its == its_s):
+        raise RuntimeError(f"sharded distance: {err}, sweeps {its} vs "
+                           f"{its_s}")
+    _phase("parallel_parity", case="sharded_distance", n=8, sweeps=its,
+           max_abs_err=err, jax_cpu_parity=ref["distance_parity"],
+           card=card)
+    return out
+
+
+def box_kernel_rows(prob, shape):
+    """K1's box entry on a distributed problem's slab shapes (its cube
+    masks, random masked grids, a random A: the problem's own A_local is
+    symmetric, so it could not tell A x from A^T x), f32 and f64: bitwise
+    equal to the plain version, two launches bitwise equal, times (flushed
+    and warm), the plain version's and the cuSPARSE yardstick's, the
+    bound."""
+    import torch
+    from cutfemx_tpu_torch import interior_stencil as ist
+    dev = prob.device
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    points = (prob.Wext, prob.N, prob.N)
+    rng = np.random.default_rng(1)
+    X = rng.standard_normal((prob.nparts, prob.nch, *points))
+    L = len(prob.table)
+    A_np = rng.standard_normal((L, L))
+    if np.allclose(A_np, A_np.T):
+        raise RuntimeError("the kernel check needs a non-symmetric A")
+    rows = []
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).replace("torch.", "")
+        A = torch.as_tensor(A_np, dtype=dtype, device=dev)
+        Xt = torch.where(prob.d_active, torch.as_tensor(X, dtype=dtype,
+                                                        device=dev), 0.0)
+        args = (prob.nch, prob.table, A, prob.d_cube_mask, Xt)
+        before = ist.launches
+        y = ist.interior_stencil_apply_box(*args)
+        y2 = ist.interior_stencil_apply_box(*args)
+        y_ref = ist.interior_stencil_apply_box_reference(*args)
+        torch.cuda.synchronize()
+        if ist.launches != before + 2:
+            raise RuntimeError("the box entry did not count its launches")
+        if not (torch.equal(y, y_ref) and torch.equal(y, y2)):
+            raise RuntimeError(f"box K1 {shape} {name}: not bitwise the "
+                               f"plain version (max|err| "
+                               f"{float((y - y_ref).abs().max())})")
+        csr = csr_operator(prob.nch, prob.table, A, prob.d_cube_mask, points)
+        lib_err = float((torch.mv(csr, Xt.reshape(-1)) - y_ref.reshape(-1))
+                        .abs().max())
+        if not lib_err <= KERNEL_TOL[name] * float(y_ref.abs().max()):
+            raise RuntimeError(f"box cuSPARSE yardstick {name}: {lib_err}")
+        k1 = lambda: ist.interior_stencil_apply_box(*args)  # noqa: E731
+        ms = float(np.median(_device_times(k1, KERNEL_REPS, flush)))
+        ms_warm = float(np.median(_device_times(k1, KERNEL_REPS)))
+        plain_ms = float(np.median(_device_times(
+            lambda: ist.interior_stencil_apply_box_reference(*args),
+            PLAIN_REPS, flush)))
+        library_ms = float(np.median(_device_times(
+            lambda: torch.mv(csr, Xt.reshape(-1)), KERNEL_REPS, flush)))
+        del csr
+        nbytes = bound_bytes(prob.nch, prob.table, prob.d_cube_mask,
+                             Xt.element_size(), points)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        row = dict(shape=shape, dtype=name,
+                   boxes=list(prob.d_cube_mask.shape),
+                   points=list(points), max_abs_err=0.0,
+                   library_max_abs_err=lib_err, ms=ms, ms_warm=ms_warm,
+                   plain_ms=plain_ms, library_ms=library_ms,
+                   bound_bytes=nbytes, bound_ms=bound_ms,
+                   bound_us=bound_ms * 1e3, share=bound_ms / ms)
+        _phase("kernel", kernel="interior_stencil_box", **row)
+        rows.append(row)
+    return rows
+
+
+def parallel_bench_phase(ct, dev, card, n, profile=True):
+    """bench.py's step at ``n`` (r = 0.46, f32 forms, f64 refinement, rtol
+    1e-6) through ShardedStencilProblem on 8 slabs stacked on the card: a
+    warm-up and two timed passes (build and solve), gates: the true
+    relative residual <= 1e-6 through the serial f64 apply, the solution
+    within 1e-5 of the serial solve_cg(precond="asm2"), equal counts in
+    the timed passes, K1 launched once per apply (one launch for all
+    slabs), the collectives per CG iteration, per apply and per
+    preconditioner apply the design's; then a profiled solve, K1's box
+    rows, and the moving-domain step (r = 0.52: re-cut, re-assemble,
+    re-solve; the serial build cache must not adopt)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from cutfemx_tpu_torch import interior_stencil as ist
+    from cutfemx_tpu_torch.parallel import (cut_poisson_builder,
+                                            make_device_mesh, sgrid)
+    from cutfemx_tpu_torch.parallel.gridsolver import _sgrid_cg
+    from cutfemx_tpu_torch.stencil import StencilCutOperator
+    f32 = torch.float32
+    t_setup = time.perf_counter()
+    mesh, phi, V = setup(ct, n, dev, f32)
+    host_setup_s = time.perf_counter() - t_setup
+    dmesh = make_device_mesh(PARALLEL_SLABS, devices=[dev])
+    comm = dmesh.comm
+    body = sgrid._sgrid_apply_body
+    applies = [0]
+
+    def counted(*a, **k):
+        applies[0] += 1
+        return body(*a, **k)
+
+    def one_pass(name, radius):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prob = sgrid.ShardedStencilProblem(V, cut_poisson_builder(V, phi),
+                                           dmesh, dtype=f32)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        applies[0], k1_before = 0, ist.launches
+        comm.reset_counts()
+        x, its, res = prob.solve_cg(rtol=RTOL, maxiter=MAXITER)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        k1 = ist.launches - k1_before
+        if k1 != applies[0] or k1 <= 0:
+            raise RuntimeError(f"sgrid {name}: {k1} K1 launches for "
+                               f"{applies[0]} applies")
+        row = dict(its=its, build_s=t1 - t0, solve_s=t2 - t1,
+                   ms_per_iteration=(t2 - t1) * 1e3 / its, k1_launches=k1,
+                   applies=applies[0], collectives=dict(comm.counts),
+                   radius=radius)
+        _phase("parallel_step", **{"pass": name}, n=n, dofs=V.dim,
+               slabs=PARALLEL_SLABS, **row, card=card)
+        return prob, x, row
+
+    sgrid._sgrid_apply_body = counted
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        passes = [one_pass(name, RADIUS)
+                  for name in ("warmup", "timed1", "timed2")]
+        peak = torch.cuda.max_memory_allocated()
+        prob, x, row = passes[-1]
+        if passes[1][2]["its"] != row["its"]:
+            raise RuntimeError(f"sgrid: timed passes took "
+                               f"{passes[1][2]['its']} and {row['its']} "
+                               "iterations")
+        # collectives: one apply, one preconditioner apply, and a CG
+        # iteration (the difference of 15 and 5 iterations at a tolerance
+        # no f32 CG reaches)
+        X = prob.b_local
+        comm.reset_counts()
+        sgrid._sgrid_apply_body(prob, X)
+        per_apply = dict(comm.counts)
+        comm.reset_counts()
+        sgrid._sgridp_precond_body(prob, X)
+        per_precond = dict(comm.counts)
+        its_counts = []
+        for k in (5, 15):
+            comm.reset_counts()
+            _sgrid_cg(prob, sgrid._sgrid_apply_body,
+                      sgrid._sgridp_precond_body, X, 1e-30, k)
+            its_counts.append(dict(comm.counts))
+        per_it = {key: (its_counts[1][key] - its_counts[0][key]) / 10
+                  for key in its_counts[0]}
+        design = ({"ppermute": 2, "psum": 0, "pmax": 0},
+                  {"ppermute": 2, "psum": 1, "pmax": 0},
+                  {"ppermute": 4.0, "psum": 4.0, "pmax": 0.0})
+        if (per_apply, per_precond, per_it) != design:
+            raise RuntimeError(f"sgrid collectives {per_apply}, "
+                               f"{per_precond}, {per_it}; design {design}")
+        # the serial step on the same cut: the true residual and parity
+        P = poisson_forms(ct, mesh, phi, V, f32)
+        op = StencilCutOperator(P["af"], P["dom"])
+        b = torch.where(op.active, P["b"], 0.0)
+        xt = torch.as_tensor(x, device=dev)
+        rel_res = true_rel_residual(op, b, xt)
+        xs, its_s, _ = op.solve_cg(b, rtol=RTOL, maxiter=MAXITER,
+                                   precond="asm2")
+        err = _rel_norm(x, xs.cpu().numpy())
+        if not (rel_res <= RTOL and err <= PARALLEL_X_RTOL):
+            raise RuntimeError(f"sgrid n={n}: true residual {rel_res}, "
+                               f"serial parity {err}")
+        prof_row = {}
+        if profile:
+            acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+            with tprofile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                prob.solve_cg(rtol=RTOL, maxiter=MAXITER)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            items = [(e.key, e.self_device_time_total / 1e3, e.count)
+                     for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA
+                     and e.self_device_time_total > 0]
+            busy_ms = sum(ms for _, ms, _ in items)
+            if not busy_ms > 0:
+                raise RuntimeError("the profiler saw no device time")
+            k1 = [(ms, c) for key, ms, c in items
+                  if "interior_stencil" in key]
+            top = sorted(items, key=lambda it: -it[1])[:8]
+            prof_row = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                            device_idle_share=1 - busy_ms / wall_ms,
+                            device_kernel_launches=sum(c for _, _, c in items),
+                            k1_device_ms=sum(m for m, _ in k1),
+                            k1_launches=sum(c for _, c in k1),
+                            top=[dict(name=key[:80], ms=ms, count=c)
+                                 for key, ms, c in top])
+        _phase("parallel_bench", n=n, dofs=V.dim, slabs=PARALLEL_SLABS,
+               slab_planes=[int(w) for w in prob.widths],
+               iterations=row["its"],
+               serial_iterations=int(its_s), true_rel_residual=rel_res,
+               serial_parity=err, host_setup_s=host_setup_s,
+               build_s=[p[2]["build_s"] for p in passes[1:]],
+               solve_s=[p[2]["solve_s"] for p in passes[1:]],
+               ms_per_iteration=row["ms_per_iteration"],
+               collectives_per_apply=per_apply,
+               collectives_per_precond=per_precond,
+               collectives_per_iteration=per_it,
+               collectives_per_solve=row["collectives"],
+               k1_launches_per_solve=row["k1_launches"],
+               peak_memory_bytes=peak, profile=prof_row, card=card)
+        rows = box_kernel_rows(prob, f"n{n}_slabs{PARALLEL_SLABS}")
+        launches = row["k1_launches"]
+        del prob, passes, op, P
+
+        # the moving-domain step: re-cut at r = 0.52, re-assemble, re-solve
+        phi.interpolate(_sphere(RECUT_RADIUS))
+        prob2, x2, row2 = one_pass("recut", RECUT_RADIUS)
+        P2 = poisson_forms(ct, mesh, phi, V, f32)
+        op2 = StencilCutOperator(P2["af"], P2["dom"])
+        b2 = torch.where(op2.active, P2["b"], 0.0)
+        rel2 = true_rel_residual(op2, b2, torch.as_tensor(x2, device=dev))
+        xs2, _, _ = op2.solve_cg(b2, rtol=RTOL, maxiter=MAXITER,
+                                 precond="asm2")
+        err2 = _rel_norm(x2, xs2.cpu().numpy())
+        adopted = [k for k, (how, _) in op2.build_log.items()
+                   if how == "adopted"]
+        if not (rel2 <= RTOL and err2 <= PARALLEL_X_RTOL) or adopted:
+            raise RuntimeError(f"sgrid recut: true residual {rel2}, parity "
+                               f"{err2}, adopted {adopted}")
+        _phase("parallel_recut", n=n, radius=RECUT_RADIUS,
+               iterations=row2["its"], true_rel_residual=rel2,
+               serial_parity=err2, serial_build_log={
+                   k: how for k, (how, _) in op2.build_log.items()},
+               card=card)
+    finally:
+        sgrid._sgrid_apply_body = body
+    phi.interpolate(_sphere(RADIUS))
+    return launches, rows
+
+
+def parallel_fim_phase(ct, dev, card, n=N_PARALLEL_FIM):
+    """The sharded signed distance (routing, per-slab near field, sharded
+    FIM on 8 slabs, local-normal-band sign) of demo_stl_distance's
+    1,728-triangle sphere on the n-box against the serial
+    compute_signed_distance: within 1e-10 and the same sweep count."""
+    import tempfile
+    from cutfemx_tpu_torch import distance
+    from cutfemx_tpu_torch.demos import demo_stl_distance
+    from cutfemx_tpu_torch.demos import stage_clock
+    from cutfemx_tpu_torch.distance.sharded import sharded_signed_distance
+    from cutfemx_tpu_torch.parallel import make_device_mesh
+    clock = stage_clock(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sphere.stl")
+        demo_stl_distance._make_sphere_stl(path)
+        soup = distance.read_stl(path)
+    mesh = _sphere_mesh(ct, n)
+    dmesh = make_device_mesh(PARALLEL_SLABS, devices=[dev])
+    t0 = clock()
+    dp, its = sharded_signed_distance(mesh, soup, dmesh)
+    t1 = clock()
+    ds, its_s = distance.compute_signed_distance(
+        mesh, soup, sign_mode="local_normal_band", device=dev)
+    t2 = clock()
+    err = float(np.abs(dp - ds).max())
+    if not (err <= DISTANCE_ABS_TOL and its == its_s):
+        raise RuntimeError(f"sharded distance n={n}: {err}, sweeps {its} "
+                           f"vs {its_s}")
+    _phase("parallel_fim", n=n, vertices=mesh.num_vertices,
+           triangles=soup.num_triangles, slabs=PARALLEL_SLABS, sweeps=its,
+           max_abs_err=err, sharded_s=t1 - t0, serial_s=t2 - t1,
+           collectives=dict(dmesh.comm.counts), card=card)
+
+
+def parallel_phase(ct, dev, card, sizes=(N_SLICE,)):
+    """The distributed layer on one card with 8 slabs stacked on it
+    (StackedComm): the n = 16 parity block, the sgrid step at each size
+    of ``sizes`` (K1 on every apply), the sharded signed distance. Returns
+    the K1 launches of the first size's solve and its box rows."""
+    t0 = time.perf_counter()
+    parallel_parity_phase(ct, dev, card)
+    _phase("stage", stage="parallel_parity", seconds=time.perf_counter() - t0)
+    launches, rows = None, []
+    for n in sizes:
+        t0 = time.perf_counter()
+        k1, r = parallel_bench_phase(ct, dev, card, n, profile=n == N_SLICE)
+        if launches is None:
+            launches, rows = k1, r
+        _phase("stage", stage=f"parallel_bench_n{n}",
+               seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    parallel_fim_phase(ct, dev, card)
+    _phase("stage", stage="parallel_fim", seconds=time.perf_counter() - t0)
+    return launches, rows
+
+
 def main():
     import argparse
     import torch
@@ -3574,6 +4085,17 @@ def main():
            k1_launches_setup_cache=io_launches,
            total_seconds=time.perf_counter() - t_all)
 
+    # the distributed layer: 8 slabs stacked on the card; K1's box entry
+    # once per slab apply (all slabs in one launch)
+    t0 = time.perf_counter()
+    sgrid_launches, box_rows = parallel_phase(
+        ct, dev, smi, (N_SLICE, 108) if args.n108 else (N_SLICE,))
+    if sgrid_launches <= 0:
+        raise RuntimeError("the sgrid step launched no K1 kernel")
+    _phase("parallel_done", seconds=time.perf_counter() - t0,
+           k1_launches_sgrid=sgrid_launches,
+           total_seconds=time.perf_counter() - t_all)
+
     # the main path's shape: the slice's grid and mask in f32, the CG's type
     main_row = next(r for r in k if r["shape"] == "n48_bench"
                     and r["dtype"] == "float32")
@@ -3587,14 +4109,15 @@ def main():
                              "unfitted": unfitted_k1,
                              "curved_bench": curved_launches,
                              "saye_and_parity": saye_k1,
-                             "setup_cache": io_launches},
+                             "setup_cache": io_launches,
+                             "sgrid_n48_box": sgrid_launches},
         **{key: main_row[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")},
         "bound_by": "bytes",
         "shapes": [{key: r[key] for key in (
             "shape", "dtype", "max_abs_err", "ms", "ms_warm", "plain_ms",
-            "library_ms", "bound_ms", "bound_us", "share", "parent_ms")
-            if key in r} for r in k]}]}))
+            "library_ms", "bound_ms", "bound_us", "share", "parent_ms",
+            "boxes", "points") if key in r} for r in k + box_rows]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -54,10 +54,8 @@ __version__ = "0.1.0"
 
 _LAZY_MODULES = ("fem", "level_set", "mg", "stencil", "interior_stencil",
                  "interop", "demos", "distance", "extensions", "native",
-                 "optimization", "refine", "io", "petsc", "profiling")
-# the reference's modules that the port does not have yet, and the
-# ROADMAP item that ports them
-_UNPORTED = {"parallel": "ROADMAP item 13"}
+                 "optimization", "refine", "io", "petsc", "profiling",
+                 "parallel")
 _LEVELSET_API = ("normal", "level_set_value", "surface_normal", "conormal",
                  "correction_distance")
 
@@ -73,8 +71,5 @@ def __getattr__(name):
     if name in _LEVELSET_API:
         mod = _importlib.import_module(".level_set", __name__)
         return getattr(mod, name)
-    if name in _UNPORTED:
-        raise AttributeError(
-            f"cutfemx_tpu_torch.{name} is not ported yet ({_UNPORTED[name]})")
     raise AttributeError(
         f"module 'cutfemx_tpu_torch' has no attribute '{name}'")

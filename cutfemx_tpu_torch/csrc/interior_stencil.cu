@@ -51,8 +51,16 @@
 //    compile-time constants, so every A offset and window offset is an
 //    immediate; any other table takes the same path with the slots read
 //    from shared memory.
+// Boxes: the grid need not be a cube of cubes. A launch takes nb boxes one
+// after the other in memory, each nx x ny x nz cubes (its mask) on
+// Nx x Ny x Nz points (its channels' grids), N_a >= n_a + 1 per axis; the
+// cube q of a box touches its points q .. q + 1. The operator's grid is one
+// box with n_a = n, N_a = n + 1; a slab of the distributed solve is
+// Wmax x n x n cubes on (Wmax + 2) x N x N points, and the slabs stacked on
+// one card go as nb boxes in one launch. Pencils are dealt out over all
+// boxes; points no full cube touches (a box's planes past n_a) are zeros.
 // Index arithmetic is 32-bit inside the tile; only the tile's base offsets
-// into the grid and the channel stride are 64-bit. The TPU layout artifacts
+// into the grid, the channel and the box strides are 64-bit. The TPU layout artifacts
 // (128-lane z padding, +8 DMA slack, z offsets as lane rolls, the padded
 // mask) have no counterpart here.
 
@@ -67,6 +75,11 @@
 struct SlotTable {
   int n_slots;
   int slot[MAX_SLOTS];
+};
+
+// nb boxes of nx x ny x nz cubes on Nx x Ny x Nz points (see above)
+struct Box {
+  int nb, nx, ny, nz, Nx, Ny, Nz;
 };
 
 // The output tile, in points per axis: the one place to tune it. TZ = 32
@@ -153,17 +166,18 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // window cube e = tid + r * THREADS is cube (x0-1+a, y0-1+b, z0-1+c);
 // 0 outside the grid and past the window
 __device__ __forceinline__ void load_window(const uint8_t* __restrict__ mask,
-                                            int n, int x0, int y0, int z0,
-                                            int tid, uint8_t (&m)[MR]) {
-  const int64_t base = ((int64_t)(x0 - 1) * n + (y0 - 1)) * n + (z0 - 1);
+                                            const Box& bx, int x0, int y0,
+                                            int z0, int tid, uint8_t (&m)[MR]) {
+  const int64_t base =
+      ((int64_t)(x0 - 1) * bx.ny + (y0 - 1)) * bx.nz + (z0 - 1);
 #pragma unroll
   for (int r = 0; r < MR; ++r) {
     const int e = tid + r * THREADS;
     const int a = e / CSX, b = (e / CSY) % (TY + 1), c = e % CSY;
     const int qx = x0 - 1 + a, qy = y0 - 1 + b, qz = z0 - 1 + c;
-    m[r] = (e < MW && qx >= 0 && qy >= 0 && qz >= 0 && qx < n && qy < n &&
-            qz < n)
-               ? mask[base + (a * n + b) * n + c]
+    m[r] = (e < MW && qx >= 0 && qy >= 0 && qz >= 0 && qx < bx.nx &&
+            qy < bx.ny && qz < bx.nz)
+               ? mask[base + (a * bx.ny + b) * bx.nz + c]
                : 0;
   }
 }
@@ -174,10 +188,11 @@ __device__ __forceinline__ void load_window(const uint8_t* __restrict__ mask,
 template <typename T>
 __device__ __forceinline__ void stage_window(const T* __restrict__ X, T* sX,
                                              const uint8_t* sM, int x0,
-                                             int y0, int z0, int N, int nch,
-                                             int tid) {
-  const int64_t NNN = (int64_t)N * N * N;
-  const int64_t xbase = ((int64_t)(x0 - 1) * N + (y0 - 1)) * N + (z0 - 1);
+                                             int y0, int z0, const Box& bx,
+                                             int nch, int tid) {
+  const int64_t NNN = (int64_t)bx.Nx * bx.Ny * bx.Nz;
+  const int64_t xbase =
+      ((int64_t)(x0 - 1) * bx.Ny + (y0 - 1)) * bx.Nz + (z0 - 1);
   for (int w = tid; w < WIN; w += THREADS) {
     const int a = w / SX, b = (w / SY) % WY, c = w % SY;
     uint8_t h = 0;
@@ -193,7 +208,7 @@ __device__ __forceinline__ void stage_window(const T* __restrict__ X, T* sX,
             h |= sM[ca * CSX + cb * CSY + cc];
         }
     if (h) {
-      const T* src = X + xbase + (a * N + b) * N + c;
+      const T* src = X + xbase + (a * bx.Ny + b) * bx.Nz + c;
       for (int ch = 0; ch < nch; ++ch)
         cp_async<(int)sizeof(T)>(sX + ch * WIN + w, src + ch * NNN);
     }
@@ -261,11 +276,12 @@ template <typename T, int ID>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 interior_stencil_kernel(const T* __restrict__ X, const T* __restrict__ A,
                         const uint8_t* __restrict__ mask,
-                        T* __restrict__ Y, int n, int N, int nch,
+                        T* __restrict__ Y, Box bx, int nch,
                         SlotTable tab) {
   const int L = ID > 0 ? Table<ID>::L : tab.n_slots;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int64_t NNN = (int64_t)N * N * N;
+  const int64_t NNN = (int64_t)bx.Nx * bx.Ny * bx.Nz;
+  const int64_t MB = (int64_t)bx.nx * bx.ny * bx.nz;   // mask of a box
   const int G = gridDim.x;
   extern __shared__ __align__(16) unsigned char smem[];
   T* sA = reinterpret_cast<T*>(smem);
@@ -276,16 +292,18 @@ interior_stencil_kernel(const T* __restrict__ X, const T* __restrict__ A,
   int* sFlag = sStart + 9;          // per warp: the batch's occupied tiles
   uint8_t* sMb = reinterpret_cast<uint8_t*>(sFlag + WARPS);
 
-  // the pencils, and the batches of up to BATCH tiles along each
-  const int ntz = (N + TZ - 1) / TZ, nty = (N + TY - 1) / TY;
-  const int pencils = ((N + TX - 1) / TX) * nty;
+  // the pencils of every box, and the batches of up to BATCH tiles along
+  // each; pencil p is box p / ppb, footprint p % ppb
+  const int ntz = (bx.Nz + TZ - 1) / TZ, nty = (bx.Ny + TY - 1) / TY;
+  const int ppb = ((bx.Nx + TX - 1) / TX) * nty;
+  const int pencils = bx.nb * ppb;
   int p = blockIdx.x, zb = 0;   // the pencil and first tile of the batch
   uint8_t m[BATCH][MR], mn[BATCH][MR];
 #pragma unroll
   for (int k = 0; k < BATCH; ++k)
     if (p < pencils && k < ntz)
-      load_window(mask, n, (p / nty) * TX, (p % nty) * TY, k * TZ, tid,
-                  m[k]);
+      load_window(mask + (p / ppb) * MB, bx, ((p % ppb) / nty) * TX,
+                  (p % nty) * TY, k * TZ, tid, m[k]);
 
   // once per block: A (cp.async, waited for before the first batch) and,
   // for a runtime table, the slots sorted by (offset, table index). The
@@ -326,15 +344,16 @@ interior_stencil_kernel(const T* __restrict__ X, const T* __restrict__ A,
 
   const int i = warp / TY, j = warp % TY;   // the warp's run of a tile
   while (p < pencils) {
-    const int x0 = (p / nty) * TX, y0 = (p % nty) * TY;
+    const int x0 = ((p % ppb) / nty) * TX, y0 = (p % nty) * TY;
+    const T* Xb = X + (int64_t)(p / ppb) * nch * NNN;
     // the next batch: this pencil's next tiles, or the next pencil's first
     const int pn = zb + BATCH < ntz ? p : p + G;
     const int zn = zb + BATCH < ntz ? zb + BATCH : 0;
 #pragma unroll
     for (int k = 0; k < BATCH; ++k)
       if (pn < pencils && zn + k < ntz)
-        load_window(mask, n, (pn / nty) * TX, (pn % nty) * TY,
-                    (zn + k) * TZ, tid, mn[k]);
+        load_window(mask + (pn / ppb) * MB, bx, ((pn % ppb) / nty) * TX,
+                    (pn % nty) * TY, (zn + k) * TZ, tid, mn[k]);
 
     // which tiles of the batch hold a full cube
     unsigned occ = 0;
@@ -357,21 +376,22 @@ interior_stencil_kernel(const T* __restrict__ X, const T* __restrict__ A,
     for (int w = 0; w < WARPS; ++w) occ |= sFlag[w];
 
     // the warp's row (x0+i, y0+j): zeros for the runs of empty tiles
-    const bool row_ok = x0 + i < N && y0 + j < N;
-    T* yrow = Y + ((int64_t)(x0 + i) * N + (y0 + j)) * N;
+    const bool row_ok = x0 + i < bx.Nx && y0 + j < bx.Ny;
+    T* yrow = Y + (int64_t)(p / ppb) * nch * NNN +
+              ((int64_t)(x0 + i) * bx.Ny + (y0 + j)) * bx.Nz;
     if (row_ok) {
 #pragma unroll
       for (int k = 0; k < BATCH; ++k) {
         const int z = (zb + k) * TZ + lane;
-        if (zb + k < ntz && !((occ >> k) & 1) && z < N)
+        if (zb + k < ntz && !((occ >> k) & 1) && z < bx.Nz)
           for (int c = 0; c < nch; ++c) yrow[c * NNN + z] = T(0);
       }
     }
 
     // the occupied tiles: tile u + 1's X window loads while tile u computes
     int todo = occ;
-    if (todo) stage_window(X, sX, sMb + (__ffs(todo) - 1) * MW, x0, y0,
-                           (zb + __ffs(todo) - 1) * TZ, N, nch, tid);
+    if (todo) stage_window(Xb, sX, sMb + (__ffs(todo) - 1) * MW, x0, y0,
+                           (zb + __ffs(todo) - 1) * TZ, bx, nch, tid);
     for (int u = 0; todo; todo &= todo - 1, ++u) {
       const int k = __ffs(todo) - 1, z0 = (zb + k) * TZ;
       const uint8_t* sM = sMb + k * MW;
@@ -380,9 +400,9 @@ interior_stencil_kernel(const T* __restrict__ X, const T* __restrict__ A,
       __syncthreads();   // tile u's window is in; tile u - 1 is done
       const int next = todo & (todo - 1);
       if (next)
-        stage_window(X, sX + ((u + 1) & 1) * round4(nch * WIN),
+        stage_window(Xb, sX + ((u + 1) & 1) * round4(nch * WIN),
                      sMb + (__ffs(next) - 1) * MW, x0, y0,
-                     (zb + __ffs(next) - 1) * TZ, N, nch, tid);
+                     (zb + __ffs(next) - 1) * TZ, bx, nch, tid);
       if (row_ok) {
         T acc[MAX_CH];
 #pragma unroll
@@ -390,7 +410,7 @@ interior_stencil_kernel(const T* __restrict__ X, const T* __restrict__ A,
         assemble_point<T, ID>(sA, sXu, sM, sRow, sCh, sStart, xo, L,
                               (i + 1) * SX + (j + 1) * SY + lane + 1,
                               (i + 1) * CSX + (j + 1) * CSY + lane + 1, acc);
-        if (z0 + lane < N) {
+        if (z0 + lane < bx.Nz) {
 #pragma unroll
           for (int c = 0; c < MAX_CH; ++c)
             if (c < nch) yrow[c * NNN + z0 + lane] = acc[c];
@@ -409,7 +429,7 @@ interior_stencil_kernel(const T* __restrict__ X, const T* __restrict__ A,
 
 template <typename T, int ID>
 static int launch_tiles(const void* X, const void* A, const void* mask,
-                        void* Y, int n, int N, int nch, SlotTable tab,
+                        void* Y, Box bx, int nch, SlotTable tab,
                         void* stream) {
   const auto kernel = interior_stencil_kernel<T, ID>;
   const int bytes = smem_bytes<T>(nch, tab.n_slots);
@@ -427,34 +447,58 @@ static int launch_tiles(const void* X, const void* A, const void* mask,
            &per_sm, kernel, THREADS, bytes)) != cudaSuccess)
     return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int pencils = ((N + TX - 1) / TX) * ((N + TY - 1) / TY);
-  const int grid = pencils < sms * per_sm ? pencils : sms * per_sm;
+  const int64_t pencils = (int64_t)bx.nb * ((bx.Nx + TX - 1) / TX) *
+                          ((bx.Ny + TY - 1) / TY);
+  const int grid = pencils < sms * per_sm ? (int)pencils : sms * per_sm;
   kernel<<<grid, THREADS, bytes, (cudaStream_t)stream>>>(
-      (const T*)X, (const T*)A, (const uint8_t*)mask, (T*)Y, n, N, nch, tab);
+      (const T*)X, (const T*)A, (const uint8_t*)mask, (T*)Y, bx, nch, tab);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 static int launch(const void* X, const void* A, const void* mask, void* Y,
-                  int n, int N, int nch, SlotTable tab, void* stream) {
+                  Box bx, int nch, SlotTable tab, void* stream) {
   if (tab.n_slots < 1 || tab.n_slots > MAX_SLOTS || nch < 1 ||
-      nch > MAX_CH || N != n + 1 || N > 1290)   // N^3 < 2^31
+      nch > MAX_CH || bx.nb < 1 || bx.nx < 1 || bx.ny < 1 || bx.nz < 1 ||
+      bx.Nx < bx.nx + 1 || bx.Ny < bx.ny + 1 || bx.Nz < bx.nz + 1 ||
+      (int64_t)bx.Nx * bx.Ny * bx.Nz >= ((int64_t)1 << 31) ||
+      (int64_t)bx.nb * ((bx.Nx + TX - 1) / TX) * ((bx.Ny + TY - 1) / TY) >=
+          ((int64_t)1 << 31))
     return (int)cudaErrorInvalidValue;
   if (nch == 8 && table_is<2>(tab))
-    return launch_tiles<T, 2>(X, A, mask, Y, n, N, nch, tab, stream);
+    return launch_tiles<T, 2>(X, A, mask, Y, bx, nch, tab, stream);
   if (nch == 1 && table_is<1>(tab))
-    return launch_tiles<T, 1>(X, A, mask, Y, n, N, nch, tab, stream);
-  return launch_tiles<T, 0>(X, A, mask, Y, n, N, nch, tab, stream);
+    return launch_tiles<T, 1>(X, A, mask, Y, bx, nch, tab, stream);
+  return launch_tiles<T, 0>(X, A, mask, Y, bx, nch, tab, stream);
 }
+
+// The operator's cubic grid: one box of n^3 cubes on N = n + 1 points.
+static Box cube(int n, int N) { return Box{1, n, n, n, N, N, N}; }
 
 extern "C" int interior_stencil_f32(const void* X, const void* A,
                                     const void* mask, void* Y, int n, int N,
                                     int nch, SlotTable tab, void* stream) {
-  return launch<float>(X, A, mask, Y, n, N, nch, tab, stream);
+  if (N != n + 1) return (int)cudaErrorInvalidValue;
+  return launch<float>(X, A, mask, Y, cube(n, N), nch, tab, stream);
 }
 
 extern "C" int interior_stencil_f64(const void* X, const void* A,
                                     const void* mask, void* Y, int n, int N,
                                     int nch, SlotTable tab, void* stream) {
-  return launch<double>(X, A, mask, Y, n, N, nch, tab, stream);
+  if (N != n + 1) return (int)cudaErrorInvalidValue;
+  return launch<double>(X, A, mask, Y, cube(n, N), nch, tab, stream);
+}
+
+extern "C" int interior_stencil_box_f32(const void* X, const void* A,
+                                        const void* mask, void* Y, Box bx,
+                                        int nch, SlotTable tab,
+                                        void* stream) {
+  return launch<float>(X, A, mask, Y, bx, nch, tab, stream);
+}
+
+extern "C" int interior_stencil_box_f64(const void* X, const void* A,
+                                        const void* mask, void* Y, Box bx,
+                                        int nch, SlotTable tab,
+                                        void* stream) {
+  return launch<double>(X, A, mask, Y, bx, nch, tab, stream);
 }

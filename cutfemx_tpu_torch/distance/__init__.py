@@ -13,10 +13,3 @@ from .api import (SignMode, from_stl, compute_signed_distance,
                   NormalExtensionResult, adapt_mesh_to_stl,
                   refinement_edges_from_stl)  # noqa: F401
 
-
-def __getattr__(name):
-    if name == "sharded":
-        raise AttributeError("cutfemx_tpu_torch.distance.sharded is not "
-                             "ported yet (ROADMAP item 13)")
-    raise AttributeError(
-        f"module 'cutfemx_tpu_torch.distance' has no attribute '{name}'")

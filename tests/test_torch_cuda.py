@@ -1,5 +1,5 @@
 """cutfemx_tpu_torch on a CUDA card: the hand-written kernel against its
-plain version, run-to-run determinism of the grid apply and of the
+plain version (the cubic grid and the distributed solve's slab boxes), run-to-run determinism of the grid apply and of the
 preconditioner builds, the production stack against CPU tensors, and the
 2D family's element-batched CutOperator and moving-heat demo against CPU
 tensors.
@@ -129,6 +129,37 @@ def test_kernel_runtime_table(cuda_device, n, dtype, tol):
     assert torch.equal(y, y2)
     y_ref = interior_stencil_apply_reference(n, N, nch, table, *args)
     assert float((y - y_ref).abs().max()) <= tol * float(y_ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("boxes,cubes,points", [
+    (8, (6, 48, 48), (8, 49, 49)),     # bench's n = 48 over 8 slabs
+    (3, (5, 40, 13), (7, 41, 14))])    # ragged tiles on every axis
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_box_kernel_equals_plain_version(cuda_device, boxes, cubes, points,
+                                         dtype):
+    """K1's box entry (a batch of slabs of the distributed solve, one
+    launch) against its plain version on the card: bitwise equal, two
+    launches bitwise equal, one launch counted per call; planes past the
+    cubes' reach are exactly 0."""
+    from cutfemx_tpu_torch import interior_stencil as ist
+    table = _local_dof_table(2)
+    rng = np.random.default_rng(boxes)
+    A = torch.as_tensor(rng.standard_normal((27, 27)).astype(dtype),
+                        device=cuda_device)
+    mask = torch.as_tensor((rng.random((boxes, *cubes)) < 0.6)
+                           .astype(np.uint8), device=cuda_device)
+    X = torch.as_tensor(rng.standard_normal((boxes, 8, *points))
+                        .astype(dtype), device=cuda_device)
+    before = ist.launches
+    y = ist.interior_stencil_apply_box(8, table, A, mask, X)
+    y2 = ist.interior_stencil_apply_box(8, table, A, mask, X)
+    torch.cuda.synchronize()
+    assert ist.launches == before + 2
+    assert torch.equal(y, y2)
+    assert torch.equal(
+        y, ist.interior_stencil_apply_box_reference(8, table, A, mask, X))
+    assert not y[:, :, cubes[0] + 1:].any()
 
 
 def cut_operator(device, dtype):

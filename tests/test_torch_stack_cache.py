@@ -151,7 +151,8 @@ def test_traffic_model_stencil_bytes_are_the_kernel_bound(port):
     import chip_smoke
     op = port["op"]
     n, N, nch, table, _ = op._grid_statics()
-    want = chip_smoke.bound_bytes(n, N, nch, table, op.cube_mask_t, 8)
+    want = chip_smoke.bound_bytes(nch, table, op.cube_mask_t[None], 8,
+                                  (N, N, N))
     assert op.traffic_model()["stencil_bytes"] == want
 
 

@@ -95,22 +95,22 @@ def test_compact_views_match_reference(case):
 
 
 def test_facade_names_and_constant():
-    """The reference's facade names, the lazy modules, an unported name
-    that raises naming its ROADMAP item; Constant in a form, and in
-    dirichletbc on a blocked space (one value per component) and a scalar
-    one, against the reference (1e-13)."""
+    """The reference's facade names, the lazy modules (parallel and
+    distance.sharded among them), an unknown name that raises; Constant in
+    a form, and in dirichletbc on a blocked space (one value per
+    component) and a scalar one, against the reference (1e-13)."""
     from cutfemx_tpu_torch.forms import dsl, measure
     assert ct.Measure is measure.Measure
     assert (ct.dx, ct.ds, ct.dS) == (measure.dx, measure.ds, measure.dS)
     assert ct.QuadratureFunction is ct.QuadratureField is dsl.QuadratureField
     assert ct.la.__name__ == "cutfemx_tpu_torch.la"
-    for name in ("io", "petsc", "profiling"):
+    for name in ("io", "petsc", "profiling", "parallel"):
         assert getattr(ct, name).__name__ == f"cutfemx_tpu_torch.{name}"
     assert ct.fem.cut_form is ct.fem.form
-    with pytest.raises(AttributeError, match="ROADMAP item 13"):
-        ct.parallel
-    with pytest.raises(AttributeError, match="ROADMAP item 13"):
-        ct.distance.sharded
+    import cutfemx_tpu_torch.distance.sharded as sharded
+    assert ct.distance.sharded is sharded
+    with pytest.raises(AttributeError, match="no attribute 'nothing'"):
+        ct.nothing
     c = ct.Constant([0.5, -2.0], device="cpu")
     assert c.dtype == torch.get_default_dtype() and c.value.device.type == \
         "cpu"
