@@ -1,0 +1,13 @@
+"""cut_s.moving: the seconds a window step spent in the benchmark's 'cut' span
+(cut, locate_entities, ghost_penalty_facets and the runtime rules of phi<0
+and phi=0), drained at its end, averaged over the window's steps the
+profiler did not slow (``span_steps``)."""
+
+
+def read(ctx):
+    w0, w1 = ctx["span_window"]
+    spans = [b - a for n, a, b in ctx["spans"]
+             if n == "cut" and w0 <= a < w1]
+    if not spans:
+        return None
+    return sum(spans) / len(ctx["span_steps"])

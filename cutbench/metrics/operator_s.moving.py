@@ -1,0 +1,12 @@
+"""operator_s.moving: the seconds a window step spent in the benchmark's
+'operator' span (StencilCutOperator.__init__), drained at its end, averaged
+over the window's steps the profiler did not slow (``span_steps``)."""
+
+
+def read(ctx):
+    w0, w1 = ctx["span_window"]
+    spans = [b - a for n, a, b in ctx["spans"]
+             if n == "operator" and w0 <= a < w1]
+    if not spans:
+        return None
+    return sum(spans) / len(ctx["span_steps"])
