@@ -23,6 +23,7 @@ import torch
 
 from ..functionspace import Function
 from ..mesh import Mesh
+from ..profiling import span
 from .classify import CutData
 from .quadrature import (RuntimeQuadratureRules, _march_parts,
                          compound_volume_rules, facet_interface_rules,
@@ -63,8 +64,9 @@ def cut(level_set, entities=None, entity_dim=None, *,
                    cut_approximation_order=cut_approximation_order,
                    max_refinement_iterations=max_refinement_iterations,
                    edge_max_depth=edge_max_depth)
-    return CutData(level_sets, entities=entities, entity_dim=entity_dim,
-                   options=options)
+    with span("cut.classify"):
+        return CutData(level_sets, entities=entities, entity_dim=entity_dim,
+                       options=options)
 
 
 def update(cut_data: CutData):
@@ -74,7 +76,8 @@ def update(cut_data: CutData):
 
 
 def locate_entities(cut_data: CutData, ls_part: str):
-    return cut_data.locate(ls_part)
+    with span("cut.locate"):
+        return cut_data.locate(ls_part)
 
 
 def _subdivision_levels(cut_data, phi):
@@ -125,51 +128,53 @@ def runtime_quadrature(cut_data: CutData, ls_part: str, order: int, *,
     polished facet rules on facet-hosted CutData."""
     if backend not in ("straight", "algoim", "algoim_general"):
         raise ValueError(f"unknown backend '{backend}'")
-    terms = parse_selector(ls_part)
-    if len(terms) > 1:
-        return _union_runtime_quadrature(cut_data, terms, order)
-    if len(terms[0]) > 1:
-        return _compound_runtime_quadrature(cut_data, terms[0], order)
-    name, op = terms[0][0]
-    try:
-        idx = cut_data.level_set_names.index(name)
-    except ValueError:
-        raise ValueError(f"unknown level-set name '{name}'") from None
-    phi = cut_data.level_sets[idx]
-    mesh = cut_data.mesh
-    cut_entities = cut_data.hosted_entities[
-        cut_data.domains[idx] == DOMAIN_INTERSECTED]
-    side = "<" if op in ("<", "<=") else ">"
-    if backend in ("algoim", "algoim_general"):
-        # Saye's dimension-reduction rules on quad/hex cells; facet-hosted
-        # CutData takes the facet rules with 2D crossings polished onto
-        # the root of the true basis
-        if cut_data.hosted_dim == mesh.tdim - 1:
+    with span("cut.rules"):
+        terms = parse_selector(ls_part)
+        if len(terms) > 1:
+            return _union_runtime_quadrature(cut_data, terms, order)
+        if len(terms[0]) > 1:
+            return _compound_runtime_quadrature(cut_data, terms[0], order)
+        name, op = terms[0][0]
+        try:
+            idx = cut_data.level_set_names.index(name)
+        except ValueError:
+            raise ValueError(f"unknown level-set name '{name}'") from None
+        phi = cut_data.level_sets[idx]
+        mesh = cut_data.mesh
+        cut_entities = cut_data.hosted_entities[
+            cut_data.domains[idx] == DOMAIN_INTERSECTED]
+        side = "<" if op in ("<", "<=") else ">"
+        if backend in ("algoim", "algoim_general"):
+            # Saye's dimension-reduction rules on quad/hex cells; facet-hosted
+            # CutData takes the facet rules with 2D crossings polished onto
+            # the root of the true basis
+            if cut_data.hosted_dim == mesh.tdim - 1:
+                if op == "=":
+                    return facet_interface_rules(mesh, phi, cut_entities,
+                                                 order, polish=True)
+                return facet_volume_rules(mesh, phi, cut_entities, order,
+                                          side=side)
+            if cut_data.hosted_dim != mesh.tdim:
+                raise NotImplementedError(
+                    "algoim backends support cell-hosted rules only")
             if op == "=":
-                return facet_interface_rules(mesh, phi, cut_entities,
-                                             order, polish=True)
+                return saye_interface_rules(mesh, phi, cut_entities, order)
+            return saye_volume_rules(mesh, phi, cut_entities, order, side=side)
+        if cut_data.hosted_dim == mesh.tdim - 1:
+            # facets march the level set's values at their vertices (the
+            # reference's rule for every degree)
+            if op == "=":
+                return facet_interface_rules(mesh, phi, cut_entities, order)
             return facet_volume_rules(mesh, phi, cut_entities, order,
                                       side=side)
         if cut_data.hosted_dim != mesh.tdim:
-            raise NotImplementedError(
-                "algoim backends support cell-hosted rules only")
+            raise NotImplementedError(f"entity dim {cut_data.hosted_dim}")
+        levels, curved = _approx_plan(cut_data, phi, mesh)
         if op == "=":
-            return saye_interface_rules(mesh, phi, cut_entities, order)
-        return saye_volume_rules(mesh, phi, cut_entities, order, side=side)
-    if cut_data.hosted_dim == mesh.tdim - 1:
-        # facets march the level set's values at their vertices (the
-        # reference's rule for every degree)
-        if op == "=":
-            return facet_interface_rules(mesh, phi, cut_entities, order)
-        return facet_volume_rules(mesh, phi, cut_entities, order, side=side)
-    if cut_data.hosted_dim != mesh.tdim:
-        raise NotImplementedError(f"entity dim {cut_data.hosted_dim}")
-    levels, curved = _approx_plan(cut_data, phi, mesh)
-    if op == "=":
-        return interface_rules(mesh, phi, cut_entities, order,
-                               levels=levels, curved=curved)
-    return volume_rules(mesh, phi, cut_entities, order, side=side,
-                        levels=levels, curved=curved)
+            return interface_rules(mesh, phi, cut_entities, order,
+                                   levels=levels, curved=curved)
+        return volume_rules(mesh, phi, cut_entities, order, side=side,
+                            levels=levels, curved=curved)
 
 
 def _compound_masks(cut_data, clauses):
@@ -278,22 +283,23 @@ def ghost_penalty_facets(cut_data: CutData, selector: str, *, depth=1,
     if cut_data.entity_dim is not None and \
             cut_data.entity_dim != cut_data.mesh.tdim:
         raise ValueError("ghost_penalty_facets expects cell-hosted CutData.")
-    msh = cut_data.mesh
-    cut_cells = locate_entities(cut_data, "phi=0" if
-                                "phi" in cut_data.level_set_names else
-                                f"{cut_data.level_set_names[0]}=0")
-    selected = locate_entities(cut_data, selector)
-    active = np.zeros(msh.num_cells, dtype=bool)
-    active[cut_cells] = True
-    active[selected] = True
-    is_cut = np.zeros(msh.num_cells, dtype=bool)
-    is_cut[cut_cells] = True
-    fc = msh.facet_cells
-    interior = fc[:, 1] >= 0
-    c1 = np.maximum(fc[:, 1], 0)
-    both_active = interior & active[fc[:, 0]] & active[c1]
-    any_cut = is_cut[fc[:, 0]] | is_cut[c1]
-    return np.flatnonzero(both_active & any_cut).astype(np.int32)
+    with span("cut.ghost_facets"):
+        msh = cut_data.mesh
+        cut_cells = locate_entities(cut_data, "phi=0" if
+                                    "phi" in cut_data.level_set_names else
+                                    f"{cut_data.level_set_names[0]}=0")
+        selected = locate_entities(cut_data, selector)
+        active = np.zeros(msh.num_cells, dtype=bool)
+        active[cut_cells] = True
+        active[selected] = True
+        is_cut = np.zeros(msh.num_cells, dtype=bool)
+        is_cut[cut_cells] = True
+        fc = msh.facet_cells
+        interior = fc[:, 1] >= 0
+        c1 = np.maximum(fc[:, 1], 0)
+        both_active = interior & active[fc[:, 0]] & active[c1]
+        any_cut = is_cut[fc[:, 0]] | is_cut[c1]
+        return np.flatnonzero(both_active & any_cut).astype(np.int32)
 
 
 # -- cut visualisation meshes ------------------------------------------------

@@ -35,6 +35,7 @@ from .forms.dsl import extract_arguments
 from .forms.measure import (FormExpr, Integral, Measure,
                             split_subdomain_data)
 from .la import MatrixCSR
+from .profiling import span
 
 __all__ = ["CutForm", "form", "cut_form", "MixedCutForm",
            "extract_blocks", "assemble_scalar", "assemble_vector",
@@ -647,9 +648,10 @@ def form(form_expr, dtype=None, device="cuda"):
     the block-composed matrix and vector."""
     if not isinstance(form_expr, FormExpr):
         raise TypeError("form() expects expr * measure (a FormExpr)")
-    if any(part is not None for _, part in _arguments(form_expr)):
-        return MixedCutForm(form_expr, dtype=dtype, device=device)
-    return CutForm(form_expr, dtype=dtype, device=device)
+    with span("forms.compile"):
+        if any(part is not None for _, part in _arguments(form_expr)):
+            return MixedCutForm(form_expr, dtype=dtype, device=device)
+        return CutForm(form_expr, dtype=dtype, device=device)
 
 
 cut_form = form
@@ -820,17 +822,18 @@ def assemble_vector(f):
             for b, sp in zip(f.blocks, f.test_spaces)])
     if f.rank != 1:
         raise ValueError("assemble_vector requires a rank-1 form")
-    V = f.test_space
-    parts, rows_list = [], []
-    for inst in f.instances:
-        be = inst.kernel.assemble_vector(inst.data, f.dtype, f.block)
-        parts.append(be.reshape(-1))
-        rows_list.append(np.asarray(f._entity_dofs(V, inst)).ravel())
-    if not parts:
-        return torch.zeros(V.dim, dtype=f.dtype, device=f.device)
-    perm, lengths = sorted_scatter_plan(np.concatenate(rows_list), V.dim,
-                                        f.device)
-    return segment_sum_sorted(torch.cat(parts)[perm], lengths)
+    with span("forms.assemble_vector"):
+        V = f.test_space
+        parts, rows_list = [], []
+        for inst in f.instances:
+            be = inst.kernel.assemble_vector(inst.data, f.dtype, f.block)
+            parts.append(be.reshape(-1))
+            rows_list.append(np.asarray(f._entity_dofs(V, inst)).ravel())
+        if not parts:
+            return torch.zeros(V.dim, dtype=f.dtype, device=f.device)
+        perm, lengths = sorted_scatter_plan(np.concatenate(rows_list),
+                                            V.dim, f.device)
+        return segment_sum_sorted(torch.cat(parts)[perm], lengths)
 
 
 def assemble_matrix(f, bcs=None, extension_terms=None):
@@ -1122,15 +1125,16 @@ def active_domain(f, space=None):
     V = space or f.test_space or f.trial_space
     if V is None:
         raise ValueError("active_domain requires a form with arguments")
-    cells = [inst.rows_cells.ravel() for inst in f.instances]
-    if cells:
-        active_cells = np.unique(np.concatenate(cells)).astype(np.int32)
-    else:
-        active_cells = np.zeros(0, np.int32)
-    touched = np.zeros(V.dim, dtype=bool)
-    touched[V.blocked_dofmap[active_cells].ravel()] = True
-    inactive = np.flatnonzero(~touched).astype(np.int32)
-    return ActiveDomain(V, active_cells, inactive)
+    with span("forms.active_domain"):
+        cells = [inst.rows_cells.ravel() for inst in f.instances]
+        if cells:
+            active_cells = np.unique(np.concatenate(cells)).astype(np.int32)
+        else:
+            active_cells = np.zeros(0, np.int32)
+        touched = np.zeros(V.dim, dtype=bool)
+        touched[V.blocked_dofmap[active_cells].ravel()] = True
+        inactive = np.flatnonzero(~touched).astype(np.int32)
+        return ActiveDomain(V, active_cells, inactive)
 
 
 def _zero_entries(b, rows):

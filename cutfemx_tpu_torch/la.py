@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .profiling import count, span
+
 __all__ = ["MatrixCSR", "direct_solve", "cg_init", "cg_resume", "cg",
            "bicgstab", "power_iteration_lmax", "chebyshev_preconditioner"]
 
@@ -104,6 +106,16 @@ def _rdot(a, b):
     return torch.vdot(a, b).real
 
 
+def _host_read(t, kind=float):
+    """``kind(t)`` of a 0-d tensor: a blocking device-to-host read of the
+    solve, inside a ``solve.sync`` span and counted as
+    ``solve.host_reads``."""
+    with span("solve.sync"):
+        v = kind(t)
+    count("solve.host_reads")
+    return v
+
+
 def cg_init(operator, b, x0=None, M=None):
     """Initial PCG state (x, r, p, rz, it) and squared rhs norm."""
     x = torch.zeros_like(b) if x0 is None else x0
@@ -128,7 +140,7 @@ def cg_resume(operator, state, M, tol2, it_cap):
         # arithmetic (r, M^-1 r) stays positive, and once it is not, the
         # recurrence can only produce garbage (NaN x within a few steps)
         go = (_rdot(r, r) > tol2) & (rz > 0)
-        if it >= it_cap or not bool(go):
+        if it >= it_cap or not _host_read(go, bool):
             break
         Ap = operator(p)
         alpha = rz / _rdot(p, Ap)

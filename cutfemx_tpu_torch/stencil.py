@@ -46,8 +46,9 @@ import torch
 from .fem import (CutOperator, _build_apply_arrays, segment_sum_sorted,
                   sorted_scatter_plan)
 from .interior_stencil import interior_stencil_apply
-from .la import cg, cg_init, cg_resume
+from .la import _host_read, cg, cg_init, cg_resume
 from .mg import structured_lattice_info
+from .profiling import record, span
 
 __all__ = ["StencilCutOperator"]
 
@@ -214,21 +215,22 @@ class StencilCutOperator:
         table = _local_dof_table(self.degree)
         self.table = table
         L = len(table)
-        probe_cube = self._an_interior_cube(full_cubes, n)
-        probe_cells = probe_cube * 6 + np.arange(6)
-        probe_data = self._subset_data(form, probe_cells)
-        Ae6 = std.kernel.assemble_matrix(probe_data, form.dtype,
-                                         form.block).cpu().numpy()
-        A_local = np.zeros((L, L))
-        slot = self._dof_slot_map(mesh, probe_cube, n)
-        bd = V.blocked_dofmap
-        for t in range(6):
-            ls = [slot[d] for d in bd[probe_cells[t]]]
-            for a_, la in enumerate(ls):
-                for b_, lb in enumerate(ls):
-                    A_local[la, lb] += Ae6[t, a_, b_]
-        self.A_local = torch.as_tensor(A_local, dtype=form.dtype,
-                                       device=dev)
+        with span("operator.local_matrix"):
+            probe_cube = self._an_interior_cube(full_cubes, n)
+            probe_cells = probe_cube * 6 + np.arange(6)
+            probe_data = self._subset_data(form, probe_cells)
+            Ae6 = std.kernel.assemble_matrix(probe_data, form.dtype,
+                                             form.block).cpu().numpy()
+            A_local = np.zeros((L, L))
+            slot = self._dof_slot_map(mesh, probe_cube, n)
+            bd = V.blocked_dofmap
+            for t in range(6):
+                ls = [slot[d] for d in bd[probe_cells[t]]]
+                for a_, la in enumerate(ls):
+                    for b_, lb in enumerate(ls):
+                        A_local[la, lb] += Ae6[t, a_, b_]
+            self.A_local = torch.as_tensor(A_local, dtype=form.dtype,
+                                           device=dev)
 
         # dof -> (channel, lattice coords) grids depend only on (V, mesh),
         # not on the level set: cache them on the function space so a
@@ -240,7 +242,8 @@ class StencilCutOperator:
              self.grid_gather, self._dof_to_grid_host, self.dof_to_grid,
              self.N) = gm[1]
         else:
-            self._build_grid_maps(V, mesh, lo, h_axes)
+            with span("operator.grid_maps"):
+                self._build_grid_maps(V, mesh, lo, h_axes)
             V._stencil_grid_cache = (gm_key, (
                 self.grid_index, self._grid_valid_host, self.grid_valid,
                 self.grid_gather, self._dof_to_grid_host, self.dof_to_grid,
@@ -248,69 +251,75 @@ class StencilCutOperator:
 
         # element path: all other instances + leftover standard cells,
         # merged and with interior-facet duplicate dofs compressed
-        op_rest = CutOperator(form, domain, apply_plan=False)
-        mats, rows, cols, itypes = [], [], [], []
-        for i, inst in enumerate(form.instances):
-            Ae = op_rest.element_matrices[i]
-            rr = op_rest._rows_host[i]
-            cc = op_rest._cols_host[i]
-            if i == std_idx:
-                keep = np.isin(np.asarray(inst.rows_cells), leftover_cells)
-                keep &= np.arange(len(keep)) < inst.n_valid
-                if keep.any():
-                    sel = torch.as_tensor(np.flatnonzero(keep), device=dev)
-                    mats.append(Ae[sel])
-                    rows.append(rr[keep])
-                    cols.append(cc[keep])
+        with span("operator.element_path"):
+            op_rest = CutOperator(form, domain, apply_plan=False)
+            mats, rows, cols, itypes = [], [], [], []
+            for i, inst in enumerate(form.instances):
+                Ae = op_rest.element_matrices[i]
+                rr = op_rest._rows_host[i]
+                cc = op_rest._cols_host[i]
+                if i == std_idx:
+                    keep = np.isin(np.asarray(inst.rows_cells),
+                                   leftover_cells)
+                    keep &= np.arange(len(keep)) < inst.n_valid
+                    if keep.any():
+                        sel = torch.as_tensor(np.flatnonzero(keep),
+                                              device=dev)
+                        mats.append(Ae[sel])
+                        rows.append(rr[keep])
+                        cols.append(cc[keep])
+                        itypes.append(inst.itype)
+                else:
+                    mats.append(Ae)
+                    rows.append(rr)
+                    cols.append(cc)
                     itypes.append(inst.itype)
+        with span("operator.apply_plan"):
+            mats_m, rows_m, cols_m = _build_apply_arrays(mats, rows, cols,
+                                                         itypes)
+            self.rest_mats = tuple(mats_m)
+
+            self.active = (torch.as_tensor(domain.active_mask, device=dev)
+                           if domain is not None else None)
+
+            # grid-layout solve path: CG state stays in channel-grid layout so
+            # the interior needs no gathers; only the element path gathers
+            nch = 8 if self.degree == 2 else 1
+            self.nch = nch
+            self.gsize = nch * self.N ** 3
+            d2g = self._dof_to_grid_host
+            # host mirrors: the builds do their bounding-box bookkeeping on
+            # them
+            self._rest_rows_grid_host = tuple(
+                d2g[np.asarray(r)].astype(np.int64) for r in rows_m)
+            self._rest_cols_grid_host = tuple(
+                d2g[np.asarray(c)].astype(np.int64) for c in cols_m)
+            self.rest_rows_grid = tuple(
+                torch.as_tensor(g, device=dev)
+                for g in self._rest_rows_grid_host)
+            self.rest_cols_grid = tuple(
+                torch.as_tensor(g, device=dev)
+                for g in self._rest_cols_grid_host)
+            flat = np.concatenate([np.asarray(r).ravel() for r in rows_m]) if \
+                rows_m else np.zeros(0, np.int64)
+            gflat = d2g[flat] if len(flat) else np.zeros(0, np.int64)
+            self._permg, self._seg_lengths = sorted_scatter_plan(
+                gflat, self.gsize, dev)
+            valid_flat = self._grid_valid_host.reshape(-1)
+            if self.active is not None:
+                act = np.zeros(self.gsize, bool)
+                act[valid_flat] = np.asarray(domain.active_mask)[
+                    self.grid_index.reshape(-1)[valid_flat]]
+                self._active_grid_host = act
+                self.active_grid = torch.as_tensor(act, device=dev)
+                self.identity_grid = torch.as_tensor(valid_flat & ~act,
+                                                     device=dev)
             else:
-                mats.append(Ae)
-                rows.append(rr)
-                cols.append(cc)
-                itypes.append(inst.itype)
-        mats_m, rows_m, cols_m = _build_apply_arrays(mats, rows, cols,
-                                                     itypes)
-        self.rest_mats = tuple(mats_m)
-
-        self.active = (torch.as_tensor(domain.active_mask, device=dev)
-                       if domain is not None else None)
-
-        # grid-layout solve path: CG state stays in channel-grid layout so
-        # the interior needs no gathers; only the element path gathers
-        nch = 8 if self.degree == 2 else 1
-        self.nch = nch
-        self.gsize = nch * self.N ** 3
-        d2g = self._dof_to_grid_host
-        # host mirrors: the builds do their bounding-box bookkeeping on them
-        self._rest_rows_grid_host = tuple(
-            d2g[np.asarray(r)].astype(np.int64) for r in rows_m)
-        self._rest_cols_grid_host = tuple(
-            d2g[np.asarray(c)].astype(np.int64) for c in cols_m)
-        self.rest_rows_grid = tuple(
-            torch.as_tensor(g, device=dev)
-            for g in self._rest_rows_grid_host)
-        self.rest_cols_grid = tuple(
-            torch.as_tensor(g, device=dev)
-            for g in self._rest_cols_grid_host)
-        flat = np.concatenate([np.asarray(r).ravel() for r in rows_m]) if \
-            rows_m else np.zeros(0, np.int64)
-        gflat = d2g[flat] if len(flat) else np.zeros(0, np.int64)
-        self._permg, self._seg_lengths = sorted_scatter_plan(
-            gflat, self.gsize, dev)
-        valid_flat = self._grid_valid_host.reshape(-1)
-        if self.active is not None:
-            act = np.zeros(self.gsize, bool)
-            act[valid_flat] = np.asarray(domain.active_mask)[
-                self.grid_index.reshape(-1)[valid_flat]]
-            self._active_grid_host = act
-            self.active_grid = torch.as_tensor(act, device=dev)
-            self.identity_grid = torch.as_tensor(valid_flat & ~act,
+                self._active_grid_host = valid_flat
+                self.active_grid = torch.as_tensor(valid_flat, device=dev)
+                self.identity_grid = torch.zeros(self.gsize,
+                                                 dtype=torch.bool,
                                                  device=dev)
-        else:
-            self._active_grid_host = valid_flat
-            self.active_grid = torch.as_tensor(valid_flat, device=dev)
-            self.identity_grid = torch.zeros(self.gsize, dtype=torch.bool,
-                                             device=dev)
         self._init_stack_state()
 
     def _init_stack_state(self):
@@ -527,27 +536,35 @@ class StencilCutOperator:
         blocks are taken from it); builds are reused across operators on a
         bitwise-equal cut (see ``_adopt_cached``). Long solves run as
         chunks of at most ``dispatch_chunk`` iterations with a
-        true-residual restart between them."""
-        if precond == "auto":
-            precond = self._auto_precond()
-        if precond not in _PRECONDS:
-            raise ValueError(f"unknown precond {precond!r}")
-        b = self._vector(b)
-        if refine is True or (refine == "auto"
-                              and b.dtype == torch.float32):
-            return self._solve_ir(b, rtol, maxiter, precond, dispatch_chunk)
-        bb = torch.where(self.active, b, 0.0) \
-            if self.active is not None else b
-        bg = self.vec_to_grid(bb)
-        if precond == "jacobi":
-            # single-run Jacobi PCG: trajectory-compatible with a plain
-            # element-path solve
-            xg, it, res = _grid_cg(*self._grid_statics(),
-                                   *self._grid_arrays(), bg, rtol, maxiter)
-            return xg[self.dof_to_grid], it, res
-        xg, it, rr = self._inner_solve(bg, rtol, maxiter, precond,
-                                       dispatch_chunk)
-        return xg[self.dof_to_grid], it, np.sqrt(rr)
+        true-residual restart between them.
+
+        Under a torch profiler the solve records the spans ``solve`` (the
+        whole call), ``solve.build.<stage>``, ``solve.ir.measure``,
+        ``solve.stage.<k1|band|asm|coarse>`` and ``solve.sync`` (each
+        blocking device-to-host read, counted in ``solve.host_reads``);
+        see ``profiling``."""
+        with span("solve"):
+            if precond == "auto":
+                precond = self._auto_precond()
+            if precond not in _PRECONDS:
+                raise ValueError(f"unknown precond {precond!r}")
+            b = self._vector(b)
+            if refine is True or (refine == "auto"
+                                  and b.dtype == torch.float32):
+                return self._solve_ir(b, rtol, maxiter, precond,
+                                      dispatch_chunk)
+            bb = torch.where(self.active, b, 0.0) \
+                if self.active is not None else b
+            bg = self.vec_to_grid(bb)
+            if precond == "jacobi":
+                # single-run Jacobi PCG: trajectory-compatible with a plain
+                # element-path solve
+                xg, it, res = _grid_cg(*self._grid_statics(),
+                                       *self._grid_arrays(), bg, rtol, maxiter)
+                return xg[self.dof_to_grid], it, res
+            xg, it, rr = self._inner_solve(bg, rtol, maxiter, precond,
+                                           dispatch_chunk)
+            return xg[self.dof_to_grid], it, np.sqrt(rr)
 
     def _auto_precond(self):
         """The 'auto' rule. CPU tensors: 'asm' (the cheapest build; the
@@ -619,7 +636,7 @@ class StencilCutOperator:
         relative to the current residual). f64 is native on the card."""
         act = self.active if self.active is not None else True
         bg, bg64, bb2d = _ir_prep(act, self.grid_valid, self.grid_gather, b)
-        bb2 = float(bb2d)
+        bb2 = _host_read(bb2d)
         tol2 = rtol * rtol * bb2
         x64 = None
         best_x64, best_rho2 = None, bb2   # x = 0 has residual ||b||^2
@@ -634,10 +651,11 @@ class StencilCutOperator:
                 r32 = bg
                 rho2 = bb2
             else:
-                r32, rho2d = _ir_measure(*self._grid_statics(),
-                                         *self._grid_arrays_f64(), bg64,
-                                         x64)
-                rho2 = float(rho2d)
+                with span("solve.ir.measure"):
+                    r32, rho2d = _ir_measure(*self._grid_statics(),
+                                             *self._grid_arrays_f64(), bg64,
+                                             x64)
+                rho2 = _host_read(rho2d)
                 if np.isfinite(rho2) and rho2 < best_rho2:
                     best_x64, best_rho2 = x64, rho2
             if best_rho2 <= tol2 or total_its >= maxiter or outer == 10 \
@@ -668,7 +686,7 @@ class StencilCutOperator:
             dispatch_chunk = max(50, int(1.25e9 / max(self.gsize, 1)))
         chunk = max(1, min(int(dispatch_chunk), 150))
         state, rr, tol2d = _cg_first(op, M, bg, rtol, min(chunk, maxiter))
-        rr_f, tol2 = float(rr), float(tol2d)
+        rr_f, tol2 = _host_read(rr), _host_read(tol2d)
         it = int(state[4])
         x = state[0]
         if not np.isfinite(rr_f):
@@ -680,7 +698,7 @@ class StencilCutOperator:
         while rr_f > tol2 and it < maxiter:
             cap = min(chunk, maxiter - it)
             x, rr, its_done = _cg_restart(op, M, bg, x, tol2, cap)
-            rr_f = float(rr)
+            rr_f = _host_read(rr)
             it += int(its_done) + 1   # +1: the restart's fresh apply
             # f32 accuracy floor of the block preconditioner: if a chunk
             # diverges, NaNs, breaks down (rz <= 0 exits the loop early),
@@ -712,7 +730,7 @@ class StencilCutOperator:
         while it < maxiter:
             x, rr, its_done = _cg_restart(op, M, bg, x, tol2,
                                           min(chunk, maxiter - it))
-            rr_f = float(rr)
+            rr_f = _host_read(rr)
             it += int(its_done) + 1
             if not np.isfinite(rr_f):
                 if retried_from_zero:
@@ -801,17 +819,20 @@ class StencilCutOperator:
     def _ensure(self, stage, built_attr, build, names):
         """Adopt ``stage`` from the cache or build and store it; log which
         and how long it took (the card is drained first, as every build
-        ends drained, so stages do not hold each other's transients)."""
+        ends drained, so stages do not hold each other's transients). The
+        seconds are the ``solve.build.<stage>`` span's two clock reads."""
         if getattr(self, built_attr) is not None:
             return
-        t0 = time.perf_counter()
+        t0 = time.time_ns()
         how = "adopted"
         if not self._adopt_cached(stage):
             how = "built"
             build()
             _sync(self.device)
             self._store_cached(stage, names)
-        self.build_log[stage] = (how, time.perf_counter() - t0)
+        t1 = time.time_ns()
+        self.build_log[stage] = (how, (t1 - t0) / 1e9)
+        record("solve.build." + stage, t0, t1)
 
     def _ensure_band_fold(self):
         self._ensure("fold", "_bf_diag", self._build_band_fold_direct,
@@ -1239,7 +1260,9 @@ def _grid_apply_body(n, N, nch, table, gsize, A_local, cube_mask,
     """Operator apply on flat grid-layout vectors. Invariant: invalid grid
     slots are zero on input and output; inactive dofs get identity."""
     Xin = torch.where(active_grid, Xf, 0.0)
-    Yf = interior_stencil_apply(n, N, nch, table, A_local, cube_mask, Xin)
+    with span("solve.stage.k1"):
+        Yf = interior_stencil_apply(n, N, nch, table, A_local, cube_mask,
+                                    Xin)
     if rest_mats:
         flat = torch.cat([torch.einsum("eij,ej->ei", Ae, Xin[cg]).reshape(-1)
                           for Ae, cg in zip(rest_mats, rest_cols)])
@@ -1465,8 +1488,12 @@ def _grid_apply_fold_body(n, N, nch, table, gsize, bbox, A_local,
     stencil (the kernel on CUDA tensors, its plain version on CPU tensors)
     + dense cube/pair blocks. No gathers."""
     Xin = torch.where(active_grid, Xf, 0.0)
-    Yf = interior_stencil_apply(n, N, nch, table, A_local, cube_mask, Xin)
-    Yf = Yf + _band_rest_apply(n, N, nch, table, bbox, Dg, Fwd, Rev, Xin)
+    with span("solve.stage.k1"):
+        Yf = interior_stencil_apply(n, N, nch, table, A_local, cube_mask,
+                                    Xin)
+    with span("solve.stage.band"):
+        Yf = Yf + _band_rest_apply(n, N, nch, table, bbox, Dg, Fwd, Rev,
+                                   Xin)
     Yf = torch.where(active_grid, Yf, 0.0)
     return Yf + torch.where(identity_grid, Xf, 0.0)
 
@@ -1719,18 +1746,29 @@ def _gather_asm_ops(n, N, nch, table, gsize, bbox_asm, A_local, cube_mask,
             identity_grid, rest_mats, rest_rows, rest_cols, permg,
             seg_lengths)
     return (lambda Xf: _grid_apply_body(*args, Xf),
-            lambda r: _asm_apply_body(n, N, nch, table, bbox_asm, Binv,
-                                      active_grid, r))
+            _one_level(n, N, nch, table, bbox_asm, active_grid, Binv))
+
+
+def _one_level(n, N, nch, table, bbox_asm, active_grid, Binv):
+    """M of the one-level preconditioners: cube-ASM."""
+    def M(r):
+        with span("solve.stage.asm"):
+            return _asm_apply_body(n, N, nch, table, bbox_asm, Binv,
+                                   active_grid, r)
+    return M
 
 
 def _two_level(n, N, nch, table, bbox_asm, chsel, active_grid, Binv, W0,
                Wh, Acinv):
     """M of the two-level preconditioners: cube-ASM + coarse correction."""
+    asm = _one_level(n, N, nch, table, bbox_asm, active_grid, Binv)
+
     def M(r):
-        z = _asm_apply_body(n, N, nch, table, bbox_asm, Binv, active_grid,
-                            r)
-        return z + _coarse_apply_body(N, nch, chsel, W0, Wh, Acinv,
-                                      active_grid, r)
+        z = asm(r)
+        with span("solve.stage.coarse"):
+            zc = _coarse_apply_body(N, nch, chsel, W0, Wh, Acinv,
+                                    active_grid, r)
+        return z + zc
     return M
 
 
@@ -1751,8 +1789,7 @@ def _fold_ops(n, N, nch, table, gsize, bbox_asm, bbox_bf, A_local,
     args = (n, N, nch, table, gsize, bbox_bf, A_local, cube_mask,
             active_grid, identity_grid, Dg, Fwd, Rev)
     return (lambda Xf: _grid_apply_fold_body(*args, Xf),
-            lambda r: _asm_apply_body(n, N, nch, table, bbox_asm, Binv,
-                                      active_grid, r))
+            _one_level(n, N, nch, table, bbox_asm, active_grid, Binv))
 
 
 def _fold2_ops(n, N, nch, table, gsize, bbox_asm, bbox_bf, chsel, A_local,
