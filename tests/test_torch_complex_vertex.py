@@ -26,8 +26,6 @@ from chip_smoke import (HERMITIAN_X_RTOL, VERTEX_RIDGE_TOL,  # noqa: E402
                         complex_cases, hermitian_cg, hold_complex_cases,
                         vertex_ridge_cases)
 from test_torch_core import host  # noqa: E402
-from test_torch_core import (  # noqa: E402,F401  (autouse)
-    _yield_cpu_to_the_critical_file)
 
 TOL = 1e-12
 # tests/test_complex_assembly.py's sizes

@@ -110,19 +110,6 @@ def rel_err(ref, got):
     return np.abs(ref - got).max() / max(np.abs(ref).max(), 1e-300)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _yield_cpu_to_the_critical_file():
-    """Tier-1's wall time is tests/test_sgrid_pipeline.py's, which runs
-    beside the port's files on another worker and slows by about the CPU
-    time taken next to it; run the port's tests at a lower priority. Every
-    test_torch_* file (but the card-only test_torch_cuda.py) imports this
-    autouse fixture. The worker keeps the priority for the files it runs
-    after; xdist hands the port's files (<= 7 tests each) out after the
-    sgrid file, so no worker reaches that file niced."""
-    os.nice(10)
-    yield
-
-
 # -- host core ---------------------------------------------------------------
 
 

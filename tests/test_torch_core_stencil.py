@@ -15,8 +15,6 @@ from cutfemx_tpu_torch.interior_stencil import (  # noqa: E402
     interior_stencil_apply, interior_stencil_apply_reference)
 from test_torch_core import host, rel_err  # noqa: E402
 from test_torch_cuda import stencil_inputs as _stencil_inputs  # noqa: E402
-from test_torch_core import (  # noqa: E402,F401  (autouse)
-    _yield_cpu_to_the_critical_file)
 
 
 # -- the interior-stencil kernel's plain version ----------------------------

@@ -32,8 +32,6 @@ from chip_smoke import (CURVED_CUT, HIGHER_ORDER_RTOL,  # noqa: E402
                         JAX_CPU_CURVED, _hold_ho, curved_numbers,
                         ho_mesh_phi)
 from test_torch_core import bench_problem, host, rel_err  # noqa: E402
-from test_torch_core import (  # noqa: E402,F401  (autouse)
-    _yield_cpu_to_the_critical_file)
 
 TOL = 1e-12
 RADIUS = 0.6

@@ -39,8 +39,6 @@ from cutfemx_tpu_torch.demos import (  # noqa: E402
     demo_boundary_sphere_perimeter, demo_dg_poisson, demo_elasticity,
     demo_locate_entities, demo_moving_poisson)
 from test_torch_flower import reference_rules  # noqa: E402
-from test_torch_core import (  # noqa: E402,F401  (autouse)
-    _yield_cpu_to_the_critical_file)
 
 DEMOS_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "demos")

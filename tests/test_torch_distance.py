@@ -26,8 +26,6 @@ from cutfemx_tpu_torch.demos.demo_stl_distance import \
     _make_sphere_stl  # noqa: E402
 from cutfemx_tpu_torch.distance import api as api_t  # noqa: E402
 from cutfemx_tpu_torch.distance import stl as stl_t  # noqa: E402
-from test_torch_core import (  # noqa: E402,F401  (autouse)
-    _yield_cpu_to_the_critical_file)
 
 TOL = 1e-12          # distances and payloads, absolute
 MODES = ("component_anchor", "local_normal_band", "winding_number")

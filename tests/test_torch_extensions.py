@@ -26,8 +26,6 @@ from cutfemx_tpu import fem as fem_j  # noqa: E402
 from cutfemx_tpu_torch import extensions as et  # noqa: E402
 from cutfemx_tpu_torch import fem as fem_t  # noqa: E402
 from test_torch_core import host, rel_err  # noqa: E402
-from test_torch_core import (  # noqa: E402,F401  (autouse)
-    _yield_cpu_to_the_critical_file)
 
 N = 16
 TOL = 1e-12

@@ -21,8 +21,6 @@ import cutfemx_tpu_torch as ct  # noqa: E402
 from cutfemx_tpu_torch import interop  # noqa: E402
 from cutfemx_tpu_torch.demos import demo_poisson  # noqa: E402
 from test_torch_core import host, rel_err  # noqa: E402
-from test_torch_core import (  # noqa: E402,F401  (autouse)
-    _yield_cpu_to_the_critical_file)
 
 # tests/test_l2_parity.py's pinned errors of the reference (P1, direct);
 # copied here, not imported: the port is held to the same numbers

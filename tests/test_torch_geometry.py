@@ -27,8 +27,6 @@ from cutfemx_tpu import geometry as geo_j  # noqa: E402
 from cutfemx_tpu_torch import geometry as geo_t  # noqa: E402
 from chip_smoke import _sphere, ho_mesh_phi  # noqa: E402
 from test_torch_core import host  # noqa: E402
-from test_torch_core import (  # noqa: E402,F401  (autouse)
-    _yield_cpu_to_the_critical_file)
 
 TOL = 1e-12
 F64 = torch.float64

@@ -22,8 +22,6 @@ from cutfemx_tpu_torch.demos import (  # noqa: E402
     demo_interface_poisson as demo)
 from test_torch_core import rel_err  # noqa: E402
 from test_torch_flower import reference_rules  # noqa: E402
-from test_torch_core import (  # noqa: E402,F401  (autouse)
-    _yield_cpu_to_the_critical_file)
 
 N_IFACE, QDEG = 8, 3
 

@@ -25,8 +25,6 @@ from cutfemx_tpu import io as io_j, petsc as petsc_j  # noqa: E402
 from cutfemx_tpu_torch import io as io_t, petsc as petsc_t  # noqa: E402
 from test_io import MSH22, MSH41  # noqa: E402
 from test_torch_core import host  # noqa: E402
-from test_torch_core import (  # noqa: E402,F401  (autouse)
-    _yield_cpu_to_the_critical_file)
 
 F64 = torch.float64
 

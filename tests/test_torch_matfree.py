@@ -16,8 +16,6 @@ import cutfemx_tpu as cj  # noqa: E402
 import cutfemx_tpu_torch as ct  # noqa: E402
 from test_torch_core import host, rel_err  # noqa: E402
 from test_torch_flower import flower_problem  # noqa: E402
-from test_torch_core import (  # noqa: E402,F401  (autouse)
-    _yield_cpu_to_the_critical_file)
 
 
 @pytest.fixture(scope="module")

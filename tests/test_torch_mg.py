@@ -28,8 +28,6 @@ from cutfemx_tpu import mg as mgj  # noqa: E402
 from cutfemx_tpu_torch import mg as mgt  # noqa: E402
 from chip_smoke import MG_PARITY, mg_problem, value_summary  # noqa: E402
 from test_torch_core import bench_problem, host, rel_err  # noqa: E402
-from test_torch_core import (  # noqa: E402,F401  (autouse)
-    _yield_cpu_to_the_critical_file)
 
 N_2D = 16
 HIER_TOL = 1e-12

@@ -19,8 +19,6 @@ import cutfemx_tpu as cj  # noqa: E402
 import cutfemx_tpu_torch as ct  # noqa: E402
 from cutfemx_tpu_torch.demos import demo_moving_heat  # noqa: E402
 from test_torch_core import host, rel_err  # noqa: E402
-from test_torch_core import (  # noqa: E402,F401  (autouse)
-    _yield_cpu_to_the_critical_file)
 
 N_HEAT, STEPS = 12, 3
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -22,8 +22,6 @@ import cutfemx_tpu as cj  # noqa: E402
 import cutfemx_tpu_torch as ct  # noqa: E402
 from cutfemx_tpu_torch import interop  # noqa: E402
 from test_torch_core import host, rel_err  # noqa: E402
-from test_torch_core import (  # noqa: E402,F401  (autouse)
-    _yield_cpu_to_the_critical_file)
 
 N_FITTED, N_DISK = 12, 16
 TOL = {"fitted": 1e-12, "disk": 1e-11}     # tests/test_nonlinear.py's

@@ -23,8 +23,6 @@ from cutfemx_tpu import optimization as oj  # noqa: E402
 from cutfemx_tpu_torch import optimization as ot  # noqa: E402
 from cutfemx_tpu_torch.demos import \
     demo_compliance_optimization as demo_t  # noqa: E402
-from test_torch_core import (  # noqa: E402,F401  (autouse)
-    _yield_cpu_to_the_critical_file)
 
 TOL = 1e-12
 HISTORY_RTOL = 1e-8

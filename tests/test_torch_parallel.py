@@ -21,7 +21,6 @@ torch.set_num_threads(1)
 
 import cutfemx_tpu as cj  # noqa: E402
 import cutfemx_tpu_torch as ct  # noqa: E402
-from test_torch_core import _yield_cpu_to_the_critical_file  # noqa: E402,F401
 
 N_2D = 16
 N_GLOO = 8

@@ -21,8 +21,6 @@ from cutfemx_tpu_torch import refine as refine_t  # noqa: E402
 from cutfemx_tpu_torch.demos.demo_stl_distance import \
     _make_sphere_stl  # noqa: E402
 from cutfemx_tpu_torch.distance import winding as wind_t  # noqa: E402
-from test_torch_core import (  # noqa: E402,F401  (autouse)
-    _yield_cpu_to_the_critical_file)
 
 TOL = 1e-12
 PKGS = ((cj, dj, {}), (ct, dt, {"device": "cpu"}))

@@ -28,8 +28,6 @@ from cutfemx_tpu_torch.cut import saye as saye_t  # noqa: E402
 from chip_smoke import (HIGHER_ORDER_RTOL, JAX_CPU_SAYE,  # noqa: E402
                         _hold_ho, _sphere, ho_mesh_phi, saye_numbers)
 from test_torch_core import host  # noqa: E402
-from test_torch_core import (  # noqa: E402,F401  (autouse)
-    _yield_cpu_to_the_critical_file)
 
 TOL = 1e-12
 ORDER = 4

@@ -19,8 +19,8 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import cutfemx_tpu_torch as ct  # noqa: E402
-from test_torch_core import (_yield_cpu_to_the_critical_file,  # noqa: E402,F401
-                             bench_problem, host, reference_grid_state)
+from test_torch_core import (bench_problem, host,  # noqa: E402
+                             reference_grid_state)
 
 N, P = 8, 4
 # the reference (cutfemx_tpu on a CPU, x64) at n = 8 over 4 slabs: its

@@ -15,7 +15,6 @@ torch.set_num_threads(1)
 
 import cutfemx_tpu as cj  # noqa: E402
 import cutfemx_tpu_torch as ct  # noqa: E402
-from test_torch_core import _yield_cpu_to_the_critical_file  # noqa: E402,F401
 
 TOL = 1e-10      # tests/test_sharded_fim.py's sharded-vs-serial gate
 

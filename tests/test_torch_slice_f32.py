@@ -19,8 +19,6 @@ from cutfemx_tpu_torch.stencil import (  # noqa: E402
     StencilCutOperator as StencilT)
 from test_torch_core import (bench_problem, reference_grid_state,  # noqa: E402
                              rel_err)
-from test_torch_core import (  # noqa: E402,F401  (autouse)
-    _yield_cpu_to_the_critical_file)
 
 RTOL = 1e-6
 

@@ -20,8 +20,6 @@ from cutfemx_tpu_torch import fem as fem_t  # noqa: E402
 from cutfemx_tpu_torch.stencil import (  # noqa: E402
     StencilCutOperator as StencilT)
 from test_torch_core import bench_problem, rel_err  # noqa: E402
-from test_torch_core import (  # noqa: E402,F401  (autouse)
-    _yield_cpu_to_the_critical_file)
 
 
 @pytest.fixture(scope="module")

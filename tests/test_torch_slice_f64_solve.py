@@ -14,8 +14,6 @@ import jax.numpy as jnp  # noqa: E402
 from cutfemx_tpu_torch import interop  # noqa: E402
 from test_torch_core import host, reference_grid_state  # noqa: E402
 from test_torch_slice_f64 import port, ref  # noqa: E402,F401  (fixtures)
-from test_torch_core import (  # noqa: E402,F401  (autouse)
-    _yield_cpu_to_the_critical_file)
 
 
 # -- the grid-layout apply ----------------------------------------------------

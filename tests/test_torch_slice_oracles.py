@@ -12,8 +12,6 @@ torch.set_num_threads(1)
 import cutfemx_tpu_torch as ct  # noqa: E402
 from cutfemx_tpu_torch import fem as fem_t  # noqa: E402
 from test_torch_core import rel_err  # noqa: E402
-from test_torch_core import (  # noqa: E402,F401  (autouse)
-    _yield_cpu_to_the_critical_file)
 
 
 def _sphere(n, r):

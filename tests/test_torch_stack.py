@@ -23,8 +23,6 @@ from cutfemx_tpu import stencil as sj  # noqa: E402
 from cutfemx_tpu_torch import interop, stencil as st  # noqa: E402
 from test_torch_core import (  # noqa: E402
     bench_problem, host, reference_grid_state, rel_err)
-from test_torch_core import (  # noqa: E402,F401  (autouse)
-    _yield_cpu_to_the_critical_file)
 
 def _port_problem(**kw):
     P = bench_problem(ct, torch.float64, device="cpu",

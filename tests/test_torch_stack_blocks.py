@@ -14,8 +14,6 @@ import jax.numpy as jnp  # noqa: E402
 from cutfemx_tpu import stencil as sj  # noqa: E402
 from cutfemx_tpu_torch import stencil as st  # noqa: E402
 from test_torch_core import host, rel_err  # noqa: E402
-from test_torch_core import (  # noqa: E402,F401  (autouse)
-    _yield_cpu_to_the_critical_file)
 
 
 def test_sorted_scatter_add_sums_duplicates_in_a_fixed_order():

@@ -13,8 +13,6 @@ import cutfemx_tpu_torch as ct  # noqa: E402
 from cutfemx_tpu_torch import stencil as st  # noqa: E402
 from test_torch_core import bench_problem  # noqa: E402
 from test_torch_stack import _port_problem, port  # noqa: E402,F401
-from test_torch_core import (  # noqa: E402,F401  (autouse)
-    _yield_cpu_to_the_critical_file)
 
 
 # -- the verified-reuse build cache ----------------------------------------------

@@ -15,8 +15,6 @@ from cutfemx_tpu_torch import stencil as st  # noqa: E402
 from test_torch_core import host, rel_err  # noqa: E402
 from test_torch_stack import (  # noqa: E402,F401  (fixtures)
     _seeded_grid_vector, port, port_fold2, ref, ref_fold2, twin)
-from test_torch_core import (  # noqa: E402,F401  (autouse)
-    _yield_cpu_to_the_critical_file)
 
 
 def test_coarse_apply_on_identical_tensors(ref, twin):

@@ -26,8 +26,6 @@ from cutfemx_tpu_torch import interop  # noqa: E402
 from cutfemx_tpu_torch.demos import demo_stokes  # noqa: E402
 from test_stokes import solve_cut_stokes  # noqa: E402
 from test_torch_core import host, rel_err  # noqa: E402
-from test_torch_core import (  # noqa: E402,F401  (autouse)
-    _yield_cpu_to_the_critical_file)
 
 N_STOKES = 8
 

@@ -21,8 +21,6 @@ import cutfemx_tpu_torch as ct  # noqa: E402
 from cutfemx_tpu_torch.cut.quadrature import (  # noqa: E402
     RuntimeQuadratureRules)
 from test_torch_core import host, rel_err  # noqa: E402
-from test_torch_core import (  # noqa: E402,F401  (autouse)
-    _yield_cpu_to_the_critical_file)
 
 F64 = torch.float64
 VIEWS = ("points", "weights", "offsets", "mask", "total_points", "gdim",

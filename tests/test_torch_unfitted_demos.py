@@ -38,8 +38,6 @@ from chip_smoke import (PINNED_RTOL, _hold_pin, compound_numbers,  # noqa: E402
 from cutfemx_tpu_torch.demos import (  # noqa: E402
     demo_poisson_extension_penalty_study, demo_surface_poisson_dg)
 from test_torch_core import host  # noqa: E402
-from test_torch_core import (  # noqa: E402,F401  (autouse)
-    _yield_cpu_to_the_critical_file)
 
 DEMOS_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "demos")
